@@ -1,0 +1,84 @@
+"""DeepLab-v2 segmentation head on the OS8 ResNet backbone (NCHW).
+
+The port of ``hiast_tpu/models/deeplab_v2.py`` (reference:
+code/sseg/models/modules/seg_models/deeplab_v2.py:8-69): ASPP-v2 = sum of
+four parallel 3x3 convs at dilations 6/12/18/24 over the 2048-d backbone
+feature.  The 1x1 256-d ``representation`` head is kept for checkpoint
+parity (the reference computes it but never returns it); generation does
+not run it.  ``FCDiscriminator`` comes with the
+adversarial-warmup slice.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from hiast_tpu_torch.models.resnet import ResNetOS8
+from hiast_tpu_torch.registry import SEG_MODEL
+
+
+class ASPPV2(nn.Module):
+    """Sum of parallel dilated 3x3 convs (with bias)."""
+
+    def __init__(self, in_channels: int, num_classes: int, dilations: Sequence[int] = (6, 12, 18, 24)):
+        super().__init__()
+        self.conv2d_list = nn.ModuleList(
+            nn.Conv2d(in_channels, num_classes, 3, padding=d, dilation=d, bias=True)
+            for d in dilations
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.conv2d_list[0](x)
+        for conv in self.conv2d_list[1:]:
+            out = out + conv(x)
+        return out
+
+
+@SEG_MODEL.register("DeepLab_V2")
+class DeepLabV2(nn.Module):
+    def __init__(
+        self, num_classes: int = 19, output_dim: int = 256,
+        backbone_layers: Sequence[int] = (3, 4, 23, 3),
+    ):
+        super().__init__()
+        self.backbone = ResNetOS8(layers=backbone_layers)
+        self.aspp = ASPPV2(2048, num_classes)
+        self.representation = nn.Sequential(nn.Conv2d(2048, output_dim, 1))
+
+    def forward(self, x: torch.Tensor) -> dict:
+        feat = self.backbone(x)
+        return {"logits": self.aspp(feat), "backbone": feat}
+
+
+@torch.no_grad()
+def init_weights(module: nn.Module, generator: torch.Generator) -> None:
+    """Seeded random initialisation drawn from ``generator``: He-normal convs
+    (fan-in), N(0, 0.01) ASPP kernels as in the JAX package, zero biases,
+    identity BatchNorm except the last BN of each residual branch, scaled to
+    0.1 so that a random 101-layer trunk keeps its activations, and so its
+    logits and confidences, in a realistic range."""
+    for name, m in module.named_modules():
+        if isinstance(m, nn.Conv2d):
+            if ".conv2d_list." in f".{name}.":
+                std = 0.01
+            else:
+                std = (2.0 / (m.in_channels * m.kernel_size[0] * m.kernel_size[1])) ** 0.5
+            m.weight.copy_(torch.randn(m.weight.shape, generator=generator) * std)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()
+            m.reset_running_stats()
+            if name.endswith(".bn3"):
+                m.weight.fill_(0.1)
+
+
+def build_seg_model(cfg) -> nn.Module:
+    """Instantiate the configured segmentation trunk (registry-dispatched)."""
+    return SEG_MODEL[cfg.model.seg_model.type](
+        num_classes=cfg.dataset.num_classes,
+        output_dim=cfg.model.seg_model.output_dim,
+        backbone_layers=tuple(cfg.model.seg_model.backbone_layers),
+    )

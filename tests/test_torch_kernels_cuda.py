@@ -1,0 +1,127 @@
+"""The port's CUDA kernels against their plain versions, on a card.
+
+Every test here is marked ``cuda`` and skips without a CUDA device.  The
+file imports neither JAX nor the JAX package, so on the card's machine
+(which has no JAX) it runs with
+
+    python -m pytest tests/test_torch_kernels_cuda.py -m cuda --noconftest
+
+Tolerances: the kernels and the plain versions use one formula and sum the
+classes in one order, so labels and histogram counts should agree exactly;
+a pixel within an ulp of a bin edge or a threshold may still move, so each
+test allows the one or two pixels its size makes likely.  The per-class
+confidence sums are float atomics (order varies): rtol 1e-4.
+"""
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from hiast_tpu_torch.ops.cuda import select_kernel as K
+
+pytestmark = pytest.mark.cuda
+
+B, C, H, W = 2, 19, 48, 80
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _logits(seed, device):
+    x = (np.random.default_rng(seed).normal(size=(B, C, H, W)) * 3).astype(np.float32)
+    return torch.from_numpy(x).to(device)
+
+
+@pytest.mark.parametrize("num_bins", [256, 2048, 4096])  # 4096: the global-atomic path
+@pytest.mark.parametrize("nvalid", [B * H * W, H * W + 7])
+def test_hist_kernel_matches_plain(cuda_device, num_bins, nvalid):
+    x = _logits(1, cuda_device)
+    K.reset_launch_counts()
+    got = K.ias_hist(x, nvalid, num_bins)
+    want = K.ias_hist_plain(x, nvalid, num_bins)
+    torch.cuda.synchronize()
+    assert K.launch_counts["ias_hist"] == 1
+    torch.testing.assert_close(got.sum(1), want.sum(1), rtol=0, atol=0)
+    assert float(got.sum()) == nvalid
+    assert float((got - want).abs().sum()) <= 2
+
+
+@pytest.mark.parametrize("nvalid", [B * H * W, H * W])
+def test_select_kernel_matches_plain(cuda_device, nvalid):
+    x = _logits(2, cuda_device)
+    thr = torch.from_numpy(np.random.default_rng(3).uniform(0.3, 0.9, C).astype(np.float32)).to(cuda_device)
+    K.reset_launch_counts()
+    labels, counts, sums, maxprob = K.ias_select(x, thr, nvalid, with_maxprob=True)
+    want = K.ias_select_plain(x, thr, nvalid, with_maxprob=True)
+    torch.cuda.synchronize()
+    assert K.launch_counts["ias_select"] == 1
+    assert labels.dtype == torch.uint8 and counts.dtype == torch.int32
+    differ = int((labels != want[0]).sum())
+    assert differ <= 1
+    assert int((counts - want[1]).abs().sum()) <= differ
+    torch.testing.assert_close(sums, want[2], rtol=1e-4, atol=float(differ))
+    torch.testing.assert_close(maxprob, want[3], rtol=0, atol=1e-6)
+    if nvalid == H * W:
+        assert bool((labels[1] == 255).all()) and int(counts[1].sum()) == 0
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    x = _logits(4, cuda_device)
+    thr = torch.full((C,), 0.5, device=cuda_device)
+    with pytest.raises(TypeError):
+        K.ias_hist(x.half(), B * H * W, 256)
+    with pytest.raises(ValueError):
+        K.ias_hist(x.transpose(2, 3), B * H * W, 256)  # not contiguous
+    with pytest.raises(ValueError):
+        K.ias_select(x, thr.cpu(), B * H * W)  # thresholds on another device
+    with pytest.raises(ValueError):
+        K.ias_select(torch.zeros(1, 33, 4, 4, device=cuda_device), torch.zeros(33, device=cuda_device), 16)
+
+
+def test_generator_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    """The IAS generator on injected logits: kernels on the card, plain
+    versions on the CPU.  Thresholds within one bin, labels equal but for an
+    ulp-edge pixel, and one launch of each kernel per batch."""
+    from hiast_tpu_torch.config import default_config
+    from hiast_tpu_torch.data.png import decode_png_file
+    from hiast_tpu_torch.pseudo.generator import IASGenerator
+
+    rng = np.random.default_rng(5)
+    batches = [(rng.normal(size=(B, C, H, W)) * 2.5).astype(np.float32) for _ in range(3)]
+    paths = [[f"/d/img_{2 * k + i}.png" for i in range(B)] for k in range(3)]
+    paths[-1] = paths[-1][:1]  # a partial tail batch: one pad sample
+
+    def run(device, tag):
+        cfg = default_config()
+        cfg.pseudo_policy.type = "IAS"
+        cfg.pseudo_policy.save_dir = str(tmp_path / tag / "pseudo_label" / "gray_label")
+        logits = iter([torch.from_numpy(b).to(device) for b in batches])
+        gen = IASGenerator(
+            cfg, lambda images: next(logits),
+            lambda: ({"images": np.zeros((len(p), H, W, 3), np.uint8), "image_paths": p} for p in paths),
+            expected_count=5, device=device,
+        )
+        gen.run()
+        return gen, cfg.pseudo_policy.save_dir
+
+    K.reset_launch_counts()
+    card, card_dir = run(cuda_device, "card")
+    assert K.launch_counts == {"ias_hist": 3, "ias_select": 3}
+    cpu, cpu_dir = run(torch.device("cpu"), "cpu")
+    assert np.abs(card.class_threshold - cpu.class_threshold).max() <= 1 / 2048
+    np.testing.assert_allclose(card.class_mean_probs, cpu.class_mean_probs, atol=1e-5)
+    names = sorted(os.listdir(cpu_dir))
+    assert sorted(os.listdir(card_dir)) == names and len(names) == 5
+    differ = sum(
+        int((decode_png_file(os.path.join(card_dir, n)) != decode_png_file(os.path.join(cpu_dir, n))).sum())
+        for n in names
+    )
+    assert differ <= 2
+    with open(os.path.join(os.path.dirname(card_dir), "sample_class_stats.json")) as f:
+        assert [s["file"] for s in json.load(f)] == [p for batch in paths for p in batch]
