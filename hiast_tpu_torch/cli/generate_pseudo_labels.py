@@ -19,7 +19,6 @@ import torch
 from hiast_tpu_torch.cli.common import build_cfg, resolve_device, standard_parser
 from hiast_tpu_torch.data.datasets import build_dataset
 from hiast_tpu_torch.data.pipeline import BatchIterator, prefetched
-from hiast_tpu_torch.models.deeplab_v2 import init_weights
 from hiast_tpu_torch.models.segmentors import build_segmentor
 from hiast_tpu_torch.ops.resize import bilinear_resize
 from hiast_tpu_torch.registry import PSEUDO_POLICY
@@ -31,7 +30,7 @@ INIT_SEED = 0  # random weights when no checkpoint is given
 
 def make_forward(cfg, segmentor, device: torch.device):
     """uint8 [B,H,W,3] numpy -> {'full': full-res fp32 NCHW logits, 'low':
-    the OS8 fp32 logits}.
+    the trunk's own fp32 logits grid (stride 8 for DeepLab, 4 for SegFormer)}.
 
     The trunk runs under bf16 autocast, as the JAX CLI builds its module in
     bf16; the logits are cast to fp32 before the align_corners=True bilinear
@@ -43,15 +42,11 @@ def make_forward(cfg, segmentor, device: torch.device):
             "multi-scale / flip generation (pseudo_policy.ms_sizes, is_flip) is "
             "ROADMAP.md item A4: not ported yet"
         )
-    module = segmentor.module
 
     @torch.inference_mode()
     def forward(images: np.ndarray) -> dict:
         x = torch.from_numpy(np.ascontiguousarray(images)).to(device, non_blocking=True)
-        img = normalize_image(x)
-        with torch.autocast(device.type, dtype=torch.bfloat16):
-            out = module(img)
-        low = out["logits"].float()
+        low = segmentor.raw_apply(normalize_image(x), torch.bfloat16)["logits"].float()
         full = bilinear_resize(low, images.shape[1], images.shape[2]).contiguous()
         return {"full": full, "low": low.contiguous()}
 
@@ -72,7 +67,7 @@ def main(argv=None):
         load_weights(cfg.pseudo_policy.resume_from, segmentor.module)
     else:
         warnings.warn("no --pseudo_resume_from given: generating from RANDOM weights")
-        init_weights(segmentor.module, torch.Generator().manual_seed(INIT_SEED))
+        segmentor.module.init_weights(torch.Generator().manual_seed(INIT_SEED))
     segmentor.module.to(device).eval()
 
     h, w = cfg.pseudo_policy.resize_size

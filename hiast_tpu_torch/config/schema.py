@@ -248,13 +248,11 @@ def default_config() -> ConfigNode:
                 # lowest peak HBM (9.2 GB vs 17.0 full / 13.8 blocks_dots)
                 # AND the fastest remat step; pair with fused_attention.
                 "remat_mode": "full",
-                # fused flash-style Pallas attention for SegFormer trunks
-                # (ops/pallas/attention.py): the [N_q, N_kv] score matrix
-                # stays in VMEM instead of round-tripping HBM.  Same math;
-                # incompatible with mesh.model > 1 (pallas is opaque to the
-                # partitioner).  Either one bool, or a 4-list of per-stage
-                # flags (e.g. [True, True, True, False]) — stage 4 measured
-                # as a fused/einsum wash while stages 1-3 win (PERF.md).
+                # JAX package only: route SegFormer stages through its
+                # Pallas attention kernel (one bool, or a 4-list of
+                # per-stage flags).  The port checks the shape of the value
+                # and selects nothing: on a card every stage runs its CUDA
+                # SRA kernel (ops/cuda/attention.py).
                 "fused_attention": False,
                 # skip the optimizer update (keep params/opt state) on steps
                 # whose loss or gradients are non-finite, instead of letting

@@ -1,7 +1,8 @@
 """Host-side datasets: manifest-driven decode + remap + geometric aug.
 
-The part of ``hiast_tpu/data/datasets.py`` that pseudo-label generation
-uses: the Cityscapes target set with the deterministic 'PRS-h-w' resize.
+The part of ``hiast_tpu/data/datasets.py`` that pseudo-label generation and
+validation use: the Cityscapes target set with the deterministic 'PRS-h-w'
+resize, and the val split at its native size with its labels (no augs).
 Samples leave the host as uint8 [H, W, 3] images and uint8 [H, W] labels,
 batched by ``data/pipeline.py`` exactly as in the JAX package.  PNGs decode
 through the port's numpy codec (``data/png.py``); PIL is imported only for
@@ -102,8 +103,16 @@ class BaseDataset:
         return img, lbl, img_path
 
     def get_item(self, index: int, rng: np.random.Generator) -> dict:
-        """One sample: load + host geometric augs."""
-        img, lbl, img_path = self.load_data(index)
+        """One sample: load + host geometric augs.
+
+        An unreadable file is reported and the neighbouring index is loaded
+        instead, as the JAX package does (reference base_dataset.py:81-86)."""
+        try:
+            img, lbl, img_path = self.load_data(index)
+        except Exception as e:  # noqa: BLE001 - deliberate robustness net
+            print(f"## {e!r} loading index {index}: {self.img_paths[index]}")
+            index = index - 1 if index > 0 else index + 1
+            return self.get_item(index, rng)
         for fn in self.aug_fns:
             img, lbl = fn(img, lbl, rng)
         return {

@@ -16,7 +16,23 @@ weights across:
       representation                        -> representation.0
 
   Conv kernels transpose HWIO -> OIHW.  BatchNorm's ``num_batches_tracked``
-  (a torch-only counter) is set to 0.
+  (a torch-only counter) is set to 0.  The SegFormer tree maps onto the
+  mmseg names the port's ``SegFormer`` keeps (the inverse of
+  ``hiast_tpu/models/convert_segformer.py:mit_state_dict_to_flax``):
+
+      backbone/block3_17/...                -> backbone.block3.17....
+      attn/k + attn/v                       -> attn.kv (concatenated, k first)
+      attn/sr_norm                          -> attn.norm
+      ffn/fc1|fc2|dwconv                    -> mlp.fc1|fc2|dwconv.dwconv
+      decode_head/linear_c1                 -> decode_head.linear_c1.proj
+      decode_head/fuse|fuse_bn              -> decode_head.linear_fuse.conv|bn
+      decode_head/classifier                -> decode_head.linear_pred
+
+  The depthwise kernel [k,k,1,C] becomes [C,1,k,k] and the fuse kernel
+  [1,1,in,out] [out,in,1,1] by the same HWIO -> OIHW transpose.
+- ``hf_to_port_state_dict``: a HuggingFace ``transformers`` Segformer
+  state_dict (``segformer.encoder.*``) -> the port's mmseg names, with the
+  separate key/value projections fused into ``attn.kv``.
 - ``reference_to_port_state_dict``: a reference ``.pth`` state_dict -> port
   keys: strips the ``module.`` (DDP) and ``seg_model.`` (segmentor) prefixes,
   and maps a bare torchvision ResNet (``conv1.*``, ``layer1.*``, ``fc.*``)
@@ -40,6 +56,15 @@ def _torch_module_name(flax_path: tuple[str, ...]) -> str:
     name = re.sub(r"conv2d_list_(\d+)", r"conv2d_list.\1", name)
     if name.endswith("representation"):
         name += ".0"
+    # SegFormer
+    name = re.sub(r"block(\d)_(\d+)", r"block\1.\2", name)
+    name = re.sub(r"\.attn\.sr_norm$", ".attn.norm", name)
+    name = re.sub(r"\.ffn\.(fc1|fc2)$", r".mlp.\1", name)
+    name = re.sub(r"\.ffn\.dwconv$", ".mlp.dwconv.dwconv", name)
+    name = re.sub(r"^decode_head\.(linear_c\d)$", r"decode_head.\1.proj", name)
+    name = re.sub(r"^decode_head\.fuse_bn$", "decode_head.linear_fuse.bn", name)
+    name = re.sub(r"^decode_head\.fuse$", "decode_head.linear_fuse.conv", name)
+    name = re.sub(r"^decode_head\.classifier$", "decode_head.linear_pred", name)
     return name
 
 
@@ -69,6 +94,10 @@ def flax_to_port_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
     walk(variables.get("batch_stats", {}), ())
     for key in [k for k in out if k.endswith(".running_mean")]:
         out[key[: -len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
+    # SegFormer's separate k and v projections -> the fused kv Linear
+    for key in [k for k in out if re.search(r"\.attn\.k\.(weight|bias)$", k)]:
+        v_key = key.replace(".attn.k.", ".attn.v.")
+        out[key.replace(".attn.k.", ".attn.kv.")] = torch.cat([out.pop(key), out.pop(v_key)], 0)
     return out
 
 
@@ -96,4 +125,81 @@ def reference_to_port_state_dict(state_dict: Mapping) -> dict:
                 continue
             key = f"backbone.{key}"
         out[key] = value
+    return out
+
+
+_HF_BLOCK_RENAMES = {
+    "layer_norm_1": "norm1",
+    "layer_norm_2": "norm2",
+    "attention.self.query": "attn.q",
+    "attention.self.sr": "attn.sr",
+    "attention.self.layer_norm": "attn.norm",
+    "attention.output.dense": "attn.proj",
+    "mlp.dense1": "mlp.fc1",
+    "mlp.dense2": "mlp.fc2",
+    "mlp.dwconv.dwconv": "mlp.dwconv.dwconv",
+}
+
+
+def is_hf_segformer_layout(keys) -> bool:
+    return any(k.split("module.", 1)[-1].startswith("segformer.") for k in keys)
+
+
+def hf_to_port_state_dict(state_dict: Mapping) -> dict[str, torch.Tensor]:
+    """HuggingFace Segformer keys -> the port's (mmseg) SegFormer keys.
+
+    The port's copy of the renames in
+    ``hiast_tpu/models/convert_segformer.py:hf_segformer_state_dict_to_flax``:
+    stage indices shift from 0 to 1, ``key`` and ``value`` are concatenated
+    (key first) into ``attn.kv``, and the head's ``linear_fuse``,
+    ``batch_norm`` and ``classifier`` become ``linear_fuse.conv``,
+    ``linear_fuse.bn`` and ``linear_pred``.  Tensors keep their layout: HF
+    and mmseg store the same torch shapes."""
+    out: dict[str, torch.Tensor] = {}
+    kv_halves: dict = {}
+    for key, value in state_dict.items():
+        k = key.split("module.", 1)[-1]
+        value = torch.as_tensor(value)
+        if k.endswith("num_batches_tracked"):
+            continue
+        m = re.match(r"segformer\.encoder\.patch_embeddings\.(\d+)\.(proj|layer_norm)\.(weight|bias)$", k)
+        if m:
+            i, sub, leaf = m.groups()
+            out[f"backbone.patch_embed{int(i) + 1}.{'proj' if sub == 'proj' else 'norm'}.{leaf}"] = value
+            continue
+        m = re.match(r"segformer\.encoder\.block\.(\d+)\.(\d+)\.(.+)\.(weight|bias)$", k)
+        if m:
+            s, j, sub, leaf = m.groups()
+            base = f"backbone.block{int(s) + 1}.{j}"
+            if sub in ("attention.self.key", "attention.self.value"):
+                kv_halves.setdefault((base, leaf), {})[sub.rsplit(".", 1)[1]] = value
+            elif sub in _HF_BLOCK_RENAMES:
+                out[f"{base}.{_HF_BLOCK_RENAMES[sub]}.{leaf}"] = value
+            else:
+                raise KeyError(f"unhandled HF SegFormer block key {key!r}")
+            continue
+        m = re.match(r"segformer\.encoder\.layer_norm\.(\d+)\.(weight|bias)$", k)
+        if m:
+            out[f"backbone.norm{int(m.group(1)) + 1}.{m.group(2)}"] = value
+            continue
+        m = re.match(r"decode_head\.linear_c\.(\d+)\.proj\.(weight|bias)$", k)
+        if m:
+            out[f"decode_head.linear_c{int(m.group(1)) + 1}.proj.{m.group(2)}"] = value
+            continue
+        if k == "decode_head.linear_fuse.weight":
+            out["decode_head.linear_fuse.conv.weight"] = value
+            continue
+        m = re.match(r"decode_head\.batch_norm\.(weight|bias|running_mean|running_var)$", k)
+        if m:
+            out[f"decode_head.linear_fuse.bn.{m.group(1)}"] = value
+            continue
+        m = re.match(r"decode_head\.classifier\.(weight|bias)$", k)
+        if m:
+            out[f"decode_head.linear_pred.{m.group(1)}"] = value
+            continue
+        raise KeyError(f"unhandled HF SegFormer key {key!r}")
+    for (base, leaf), halves in kv_halves.items():
+        if set(halves) != {"key", "value"}:
+            raise KeyError(f"{base}: HF checkpoint has only {sorted(halves)} of key/value {leaf}")
+        out[f"{base}.attn.kv.{leaf}"] = torch.cat([halves["key"], halves["value"]], 0)
     return out

@@ -51,6 +51,9 @@ class DeepLabV2(nn.Module):
         feat = self.backbone(x)
         return {"logits": self.aspp(feat), "backbone": feat}
 
+    def init_weights(self, generator: torch.Generator) -> None:
+        init_weights(self, generator)
+
 
 @torch.no_grad()
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
@@ -76,9 +79,21 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
 
 
 def build_seg_model(cfg) -> nn.Module:
-    """Instantiate the configured segmentation trunk (registry-dispatched)."""
-    return SEG_MODEL[cfg.model.seg_model.type](
+    """Instantiate the configured segmentation trunk (registry-dispatched).
+
+    Every trunk takes ``backbone_layers``; SegFormer ignores it, as the JAX
+    factory does.  For SegFormer ``runtime.fused_attention`` is checked for
+    the JAX package's shape (one bool or 4 per-stage flags) and selects
+    nothing: on the card every stage runs the SRA kernel."""
+    seg = cfg.model.seg_model
+    if seg.type.startswith("SegFormer"):
+        fused = cfg.runtime.fused_attention
+        if isinstance(fused, (list, tuple)) and len(fused) != 4:
+            raise ValueError(
+                f"runtime.fused_attention as a list needs 4 per-stage flags, got {list(fused)!r}"
+            )
+    return SEG_MODEL[seg.type](
         num_classes=cfg.dataset.num_classes,
-        output_dim=cfg.model.seg_model.output_dim,
-        backbone_layers=tuple(cfg.model.seg_model.backbone_layers),
+        output_dim=seg.output_dim,
+        backbone_layers=tuple(seg.backbone_layers),
     )

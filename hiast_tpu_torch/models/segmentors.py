@@ -21,12 +21,19 @@ class BaseSegmentor:
         self.cfg = cfg
         self.module = build_seg_model(cfg)
 
-    def forward(self, img: torch.Tensor) -> dict:
+    def raw_apply(self, img: torch.Tensor, dtype: torch.dtype) -> dict:
+        """The trunk's outputs on its own grid, computed under ``dtype``
+        autocast (the JAX segmentor's compute dtype; float32 runs the trunk
+        as it is)."""
+        with torch.autocast(img.device.type, dtype=dtype, enabled=dtype != torch.float32):
+            return self.module(img)
+
+    def forward(self, img: torch.Tensor, dtype: torch.dtype = torch.float32) -> dict:
         """NCHW image -> {'logits': full-res fp32 [B, C, H, W], 'backbone'}.
 
         The logits are cast to fp32 before the align_corners=True bilinear
         upsampling (reference self_training_segmentor.py:27)."""
-        out = self.module(img)
+        out = self.raw_apply(img, dtype)
         logits = bilinear_resize(out["logits"].float(), img.shape[2], img.shape[3])
         return {"logits": logits, "backbone": out["backbone"]}
 

@@ -1,9 +1,12 @@
 """Step-level helpers shared by the port's entry points.
 
-Only ``normalize_image`` so far; the consistency and self-training steps of
-``hiast_tpu/selftrain/steps.py`` come with the training slice.
+``normalize_image`` and ``make_eval_forward`` so far; the consistency and
+self-training steps of ``hiast_tpu/selftrain/steps.py`` come with the
+training slice.
 """
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 
@@ -18,3 +21,15 @@ def normalize_image(img_uint8: torch.Tensor) -> torch.Tensor:
     mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)
     std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device)
     return ((x - mean) / std).permute(0, 3, 1, 2).contiguous()
+
+
+def make_eval_forward(segmentor, dtype: torch.dtype = torch.bfloat16) -> Callable:
+    """Normalized eval forward: uint8 [B, H, W, 3] -> full-res fp32 NCHW
+    logits (``hiast_tpu/selftrain/steps.py:make_eval_forward``), the trunk
+    at compute dtype ``dtype``."""
+
+    @torch.inference_mode()
+    def fwd(img_uint8: torch.Tensor) -> torch.Tensor:
+        return segmentor.forward(normalize_image(img_uint8), dtype)["logits"]
+
+    return fwd

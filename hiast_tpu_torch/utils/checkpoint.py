@@ -15,22 +15,34 @@ import os
 import torch
 from torch import nn
 
-from hiast_tpu_torch.models.convert import reference_to_port_state_dict
+from hiast_tpu_torch.models.convert import (
+    hf_to_port_state_dict,
+    is_hf_segformer_layout,
+    reference_to_port_state_dict,
+)
 
 log = logging.getLogger("hiast_tpu_torch")
 
 
 def load_weights(path: str, module: nn.Module) -> nn.Module:
-    """Load a torch ``.pth`` state_dict into ``module`` (in place)."""
+    """Load a torch ``.pth`` state_dict into ``module`` (in place).
+
+    A HuggingFace Segformer checkpoint (``segformer.*`` keys) is renamed
+    first, as the JAX package's ``load_weights`` detects it; a mmseg / NVlabs
+    SegFormer ``.pth`` already has the port's names."""
     if os.path.isdir(path):
         raise ValueError(
             f"{path!r} is a directory (an Orbax checkpoint of the JAX package); "
-            "the port reads .pth files: write one with "
+            "the port reads .pth files: torch.save the state_dict that "
+            "hiast_tpu_torch.models.convert.flax_to_port_state_dict(variables) returns "
+            "(any trunk), or for DeepLab write one with "
             "hiast_tpu.utils.checkpoint.export_pth(path, variables)"
         )
     state = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(state, dict) and "state_dict" in state:
         state = state["state_dict"]
+    if is_hf_segformer_layout(state.keys()):
+        state = hf_to_port_state_dict(state)
     state = reference_to_port_state_dict(state)
     target = module.state_dict()
     matched, skipped = 0, []

@@ -6,7 +6,9 @@
 - ``Resize`` matches cv2: labels exactly (INTER_NEAREST), images within one
   intensity level (INTER_LINEAR; cv2 rounds its weights to 11 bits).
 - The Cityscapes dataset and ``BatchIterator`` give the JAX package's images
-  in the JAX package's order, for the same seed.
+  in the JAX package's order, for the same seed, and the val split at its
+  native size with its labels.
+- An unreadable file loads the neighbouring index in both packages.
 """
 import io
 import json
@@ -129,3 +131,65 @@ def test_dataset_and_batches_match_jax(tmp_path):
         np.testing.assert_array_equal(g["labels"], w["labels"])
     tail = pad_batch(got[-1], 2)
     assert tail["n_valid"] == 1 and tail["images"].shape[0] == 2 and np.all(tail["labels"][1] == 255)
+
+
+def _cityscapes_pair(tmp_path, n, shape=(32, 48)):
+    """(port dataset builder, JAX dataset builder) over n written images."""
+    from hiast_tpu.config import default_config as jax_default_config
+    from hiast_tpu.data.datasets import build_dataset as jax_build_dataset
+    from hiast_tpu_torch.config import default_config
+    from hiast_tpu_torch.data.datasets import build_dataset
+    from hiast_tpu_torch.registry import populate
+
+    populate()
+    os.makedirs(tmp_path / "images")
+    manifest = []
+    for i in range(n):
+        png.write_png(str(tmp_path / "images" / f"v_{i}.png"),
+                      RNG.integers(0, 256, size=shape + (3,)).astype(np.uint8))
+        png.write_png(str(tmp_path / "images" / f"v_{i}_lbl.png"),
+                      RNG.integers(0, 19, size=shape).astype(np.uint8))
+        manifest.append({"image_name": f"images/v_{i}.png", "mask_name": f"images/v_{i}_lbl.png"})
+    (tmp_path / "m.json").write_text(json.dumps(manifest))
+
+    def configure(cfg):
+        cfg.dataset.val.type = "Cityscapes"
+        cfg.dataset.val.json_path = str(tmp_path / "m.json")
+        cfg.dataset.val.image_dir = str(tmp_path)
+        return cfg
+
+    return (
+        lambda: build_dataset(configure(default_config()), "val", aug_type=[]),
+        lambda: jax_build_dataset(configure(jax_default_config()), "val", aug_type=[]),
+    )
+
+
+def test_val_split_at_native_size_matches_jax(tmp_path):
+    ours, theirs = _cityscapes_pair(tmp_path, 3, shape=(40, 72))
+    got = list(BatchIterator(ours(), 2, shuffle=False, drop_last=False))
+    want = list(BatchIterator(theirs(), 2, shuffle=False, drop_last=False))
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert g["image_paths"] == w["image_paths"]
+        assert g["images"].shape[1:] == (40, 72, 3) and g["labels"].shape[1:] == (40, 72)
+        np.testing.assert_array_equal(g["images"], w["images"])
+        np.testing.assert_array_equal(g["labels"], w["labels"])
+
+
+@pytest.mark.parametrize("corrupt", [0, 2])
+def test_unreadable_file_loads_the_neighbour_as_in_jax(tmp_path, capsys, corrupt):
+    """A corrupt PNG is reported with the JAX package's '## ... loading index'
+    line and the neighbouring index (the next one for index 0, else the one
+    before) is returned instead, by both packages."""
+    ours, theirs = _cityscapes_pair(tmp_path, 4)
+    with open(tmp_path / "images" / f"v_{corrupt}.png", "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + b"not a png" * 10)
+    rng = np.random.default_rng(0)
+    got = ours().get_item(corrupt, rng)
+    out = capsys.readouterr().out
+    want = theirs().get_item(corrupt, rng)
+    neighbour = 1 if corrupt == 0 else corrupt - 1
+    assert f"loading index {corrupt}: " in out and out.startswith("## ")
+    assert got["image_paths"] == want["image_paths"] == str(tmp_path / "images" / f"v_{neighbour}.png")
+    np.testing.assert_array_equal(got["images"], want["images"])
+    np.testing.assert_array_equal(got["labels"], want["labels"])

@@ -5,7 +5,7 @@
   included: the port keeps its own copies).
 - yaml, PIL and cv2, which the card's machine may lack, are imported only
   inside the functions that need them, never at module level.
-- Importing the port's CLI in a fresh interpreter leaves jax unloaded.
+- Importing the port's CLIs in a fresh interpreter leaves jax unloaded.
 """
 import ast
 import os
@@ -53,7 +53,9 @@ def _module_level_imports(tree):
 def test_the_port_has_files_to_check():
     files = _port_files()
     assert len(files) > 20
-    assert os.path.join(REPO, "hiast_tpu_torch", "ops", "cuda", "select_kernel.py") in files
+    for module in (("ops", "cuda", "select_kernel.py"), ("ops", "cuda", "attention.py"),
+                   ("models", "segformer.py"), ("evaluation.py",), ("cli", "validate.py")):
+        assert os.path.join(REPO, "hiast_tpu_torch", *module) in files
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, REPO))
@@ -68,7 +70,8 @@ def test_no_jax_or_reference_package_imports(path):
 
 def test_importing_the_cli_loads_no_jax():
     code = (
-        "import sys; import hiast_tpu_torch.cli.generate_pseudo_labels, hiast_tpu_torch.registry as r;"
+        "import sys; import hiast_tpu_torch.cli.generate_pseudo_labels, hiast_tpu_torch.cli.validate,"
+        " hiast_tpu_torch.registry as r;"
         " r.populate();"
         " bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'hiast_tpu', 'yaml', 'PIL', 'cv2'));"

@@ -10,7 +10,10 @@ Tolerances: the kernels and the plain versions use one formula and sum the
 classes in one order, so labels and histogram counts should agree exactly;
 a pixel within an ulp of a bin edge or a threshold may still move, so each
 test allows the one or two pixels its size makes likely.  The per-class
-confidence sums are float atomics (order varies): rtol 1e-4.
+confidence sums are float atomics (order varies): rtol 1e-4.  The SRA
+attention kernel rounds P to bf16 at the plain version's place, from f32
+scores summed in another order: max |diff| <= 1e-2 on bf16 outputs of
+magnitude ~1 (the JAX bf16 test allows 2e-2).
 """
 import json
 import os
@@ -19,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from hiast_tpu_torch.ops.cuda import attention as A
 from hiast_tpu_torch.ops.cuda import select_kernel as K
 
 pytestmark = pytest.mark.cuda
@@ -125,3 +129,51 @@ def test_generator_on_the_card_matches_the_cpu(cuda_device, tmp_path):
     assert differ <= 2
     with open(os.path.join(os.path.dirname(card_dir), "sample_class_stats.json")) as f:
         assert [s["file"] for s in json.load(f)] == [p for batch in paths for p in batch]
+
+
+def _qkv(seed, b, nq, nkv, h, d, device):
+    rng = np.random.default_rng(seed)
+    return tuple(
+        torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device).bfloat16()
+        for s in ((b, nq, h, d), (b, nkv, h, d), (b, nkv, h, d))
+    )
+
+
+@pytest.mark.parametrize("b,nq,nkv,h,d", [
+    (2, 4608, 1152, 1, 64),  # stage 1 of B5 at 768x1536, cut to 1/16 of its queries
+    (2, 1152, 1152, 8, 64),  # stage 4 (sr 1)
+    (1, 700, 96, 2, 32),     # ragged: N_q and N_kv off every tile, D = 32
+    (1, 1, 1, 1, 64),        # one query, one key
+])
+def test_sra_attention_matches_plain(cuda_device, b, nq, nkv, h, d):
+    q, k, v = _qkv(6, b, nq, nkv, h, d, cuda_device)
+    A.reset_launch_counts()
+    got = A.sra_attention(q, k, v)
+    want = A.sra_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert A.launch_counts["sra_attention"] == 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert float((got.float() - want.float()).abs().max()) <= 1e-2
+
+
+def test_sra_attention_reads_the_kv_halves_in_place(cuda_device):
+    """k and v as the model passes them: strided views of one [B, N, 2C]
+    projection, read without a copy."""
+    b, nq, nkv, h, d = 2, 300, 200, 5, 64
+    q, _, _ = _qkv(7, b, nq, nkv, h, d, cuda_device)
+    kv = torch.randn(b, nkv, 2 * h * d, device=cuda_device).bfloat16()
+    k = kv[..., : h * d].reshape(b, nkv, h, d)
+    v = kv[..., h * d:].reshape(b, nkv, h, d)
+    got = A.sra_attention(q, k, v)
+    want = A.sra_attention_plain(q, k.contiguous(), v.contiguous())
+    assert float((got.float() - want.float()).abs().max()) <= 1e-2
+
+
+def test_sra_attention_refuses_what_the_kernel_does_not_take(cuda_device):
+    q, k, v = _qkv(8, 1, 64, 64, 2, 64, cuda_device)
+    with pytest.raises(TypeError):
+        A.sra_attention(q.float(), k.float(), v.float())  # the card takes bf16 only
+    with pytest.raises(ValueError):
+        A.sra_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))  # heads not D apart
+    with pytest.raises(RuntimeError, match="no backward"):
+        A.sra_attention(q.requires_grad_(), k, v)
