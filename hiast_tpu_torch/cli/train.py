@@ -1,0 +1,30 @@
+"""Training entry point of the port (reference code/train.py; the JAX
+package's ``hiast_tpu/cli/train.py``).
+
+    python -m hiast_tpu_torch.cli.train --config_file configs/segformer_sl_1.yaml \\
+        --pseudo_save_dir .../sl_1/pseudo_label/gray_label --work_dir .../segformer_sl_1 \\
+        [--resume_from .../model_last.pth] [--device cuda|cpu]
+
+Runs on the card by default and raises without one; ``--device cpu`` runs
+the plain PyTorch versions of the kernels (tests).  ``main`` returns the
+trainer.
+"""
+from __future__ import annotations
+
+from hiast_tpu_torch.cli.common import build_cfg, resolve_device, standard_parser
+from hiast_tpu_torch.registry import TRAINER
+
+
+def main(argv=None):
+    args = standard_parser("hiast_tpu_torch trainer").parse_args(argv)
+    cfg = build_cfg(args)
+    device = resolve_device(args.device)
+    if not cfg.trainer:
+        raise ValueError("no trainer configured: set trainer (e.g. SelfTrainingTrainer)")
+    trainer = TRAINER[cfg.trainer](cfg, device=device)
+    trainer.run()
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

@@ -1,14 +1,17 @@
-"""Host-side geometric augmentation for generation (numpy only).
+"""Host-side geometric augmentation (numpy only).
 
-The part of ``hiast_tpu/data/augment.py`` that pseudo-label generation uses:
-the deterministic 'PRS-h-w' resize and the aug-type parsing.  The resize
-follows cv2's conventions without needing cv2: INTER_LINEAR with half-pixel
-centres (edges clamped) for images, rounded to uint8, and INTER_NEAREST
-(``floor(dst * src / dst_size)``) for labels.  cv2 rounds its bilinear
-weights to 11-bit fixed point, so images may differ from cv2's by one
-intensity level; labels match it exactly.
+The part of ``hiast_tpu/data/augment.py`` that generation and plain
+self-training use: the deterministic 'PRS-h-w' resize, the 'MS' / 'OMS'
+random flip + sized crop + resize (``GeometricAug``) and the aug-type
+parsing.  The resize follows cv2's conventions without needing cv2:
+INTER_LINEAR with half-pixel centres (edges clamped) for images, rounded to
+uint8, and INTER_NEAREST (``floor(dst * src / dst_size)``) for labels.  cv2
+rounds its bilinear weights to 11-bit fixed point, so images may differ from
+cv2's by one intensity level; labels match it exactly.  ``GeometricAug``
+repeats the arithmetic of the JAX package's fused C++ crop+flip+resize
+(``native/hiast_host_ops.cc:crop_flip_resize_u8``) in numpy.
 
-The training augs ('MS', 'OMS', 'DACS', 'FDA-*') come with the training slice.
+'DACS' and 'FDA-*' come with the slices that use them.
 """
 from __future__ import annotations
 
@@ -46,6 +49,61 @@ def resize_nearest(lbl: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     rows = np.minimum(np.floor(np.arange(out_h) * (h / out_h)), h - 1).astype(np.int64)
     cols = np.minimum(np.floor(np.arange(out_w) * (w / out_w)), w - 1).astype(np.int64)
     return np.ascontiguousarray(lbl[rows][:, cols])
+
+
+def _crop_taps(n_crop: int, n_out: int):
+    """Crop-relative source indices (a, b) and the weight of b per output
+    position, in float32 as the C++ op computes them."""
+    f = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * np.float32(n_crop) / np.float32(n_out)
+    f = np.clip(f - np.float32(0.5), np.float32(0.0), np.float32(n_crop - 1))
+    a = f.astype(np.int64)
+    return a, np.minimum(a + 1, n_crop - 1), (f - a.astype(np.float32)).astype(np.float32)
+
+
+def crop_flip_resize(img, lbl, y0: int, x0: int, ch: int, cw: int, flip: bool, oh: int, ow: int):
+    """Crop [y0:y0+ch, x0:x0+cw], flip it horizontally when ``flip``, and
+    resize to (oh, ow): bilinear (half-pixel, rounded half up) for the uint8
+    [H, W, C] image, nearest for the uint8 [H, W] label."""
+    ya, yb, fy = _crop_taps(ch, oh)
+    xa, xb, fx = _crop_taps(cw, ow)
+    if flip:  # flip within the crop window
+        xa, xb = cw - 1 - xa, cw - 1 - xb
+    x = img.astype(np.float32)
+    fx = fx[None, :, None]
+    r0 = x[y0 + ya]
+    r1 = x[y0 + yb]
+    a0 = r0[:, x0 + xa] * (1 - fx) + r0[:, x0 + xb] * fx
+    a1 = r1[:, x0 + xa] * (1 - fx) + r1[:, x0 + xb] * fx
+    fy = fy[:, None, None]
+    out = (a0 * (1 - fy) + a1 * fy + np.float32(0.5)).astype(np.uint8)
+    rows = y0 + np.minimum(np.floor(np.arange(oh) * (ch / oh)).astype(np.int64), ch - 1)
+    cols = np.minimum(np.floor(np.arange(ow) * (cw / ow)).astype(np.int64), cw - 1)
+    if flip:
+        cols = cw - 1 - cols
+    return np.ascontiguousarray(out), np.ascontiguousarray(lbl[rows][:, x0 + cols])
+
+
+@dataclass
+class GeometricAug:
+    """flip + RandomSizedCrop(min_max_height, w2h_ratio) + resize to (h, w),
+    drawing from ``rng`` in the JAX package's order: flip, crop height, y0,
+    x0 (so one seed gives one crop in both packages)."""
+
+    out_h: int
+    out_w: int
+    min_max_height: tuple[int, int]
+    w2h_ratio: float
+    flip_p: float = 0.5
+
+    def __call__(self, img: np.ndarray, lbl: np.ndarray, rng: np.random.Generator):
+        flip = bool(rng.random() < self.flip_p)
+        h, w = img.shape[:2]
+        crop_h = int(rng.integers(self.min_max_height[0], self.min_max_height[1] + 1))
+        crop_h = min(crop_h, h)
+        crop_w = min(int(round(crop_h * self.w2h_ratio)), w)
+        y0 = int(rng.integers(0, h - crop_h + 1))
+        x0 = int(rng.integers(0, w - crop_w + 1))
+        return crop_flip_resize(img, lbl, y0, x0, crop_h, crop_w, flip, self.out_h, self.out_w)
 
 
 @dataclass

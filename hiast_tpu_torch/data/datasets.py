@@ -1,8 +1,12 @@
 """Host-side datasets: manifest-driven decode + remap + geometric aug.
 
-The part of ``hiast_tpu/data/datasets.py`` that pseudo-label generation and
-validation use: the Cityscapes target set with the deterministic 'PRS-h-w'
-resize, and the val split at its native size with its labels (no augs).
+The part of ``hiast_tpu/data/datasets.py`` that pseudo-label generation,
+validation and plain self-training use: the Cityscapes target set with the
+deterministic 'PRS-h-w' resize or the 'MS' / 'OMS' train augs, read with the
+previous round's pseudo-labels (``pseudo_dir``) for training, and the val
+split at its native size with its labels (no augs).  With a ``pseudo_dir``
+the dataset also loads that round's ``samples_with_class.json`` (the donor
+lists copy-paste will draw from).
 Samples leave the host as uint8 [H, W, 3] images and uint8 [H, W] labels,
 batched by ``data/pipeline.py`` exactly as in the JAX package.  PNGs decode
 through the port's numpy codec (``data/png.py``); PIL is imported only for
@@ -66,10 +70,12 @@ class BaseDataset:
         cfg,
         json_path: str,
         image_dir: str,
+        pseudo_dir: str | None = None,
         aug_type=(),
         num_classes: int = 19,
     ):
         self.cfg = cfg
+        self.pseudo_dir = pseudo_dir
         self.num_classes = num_classes
         host_augs, color_aug = A.split_aug_types(list(aug_type))
         if color_aug is not None:
@@ -79,6 +85,22 @@ class BaseDataset:
         self.aug_fns = [self.build_aug_fn(a) for a in host_augs]
         self.aug_fns = [a for a in self.aug_fns if a is not None]
         self.img_paths, self.lbl_paths = get_path_list(json_path, image_dir)
+        self.file_to_idx = {os.path.basename(p): i for i, p in enumerate(self.img_paths)}
+
+        # class -> donor image list, for copy-paste (reference
+        # base_dataset.py:61-77: sort by pixel count, drop the smallest 10%)
+        self.samples_with_class: dict[int, list[str]] | None = None
+        if self.pseudo_dir is not None:
+            stats_dir = os.path.dirname(os.path.normpath(self.pseudo_dir))
+            swc_path = os.path.join(stats_dir, "samples_with_class.json")
+            if os.path.exists(swc_path):
+                with open(swc_path) as f:
+                    raw = {int(k): v for k, v in json.load(f).items()}
+                self.samples_with_class = {}
+                for c in range(num_classes):
+                    entries = sorted(raw.get(c, []), key=lambda e: e[1])
+                    files = [os.path.basename(e[0]) for e in entries]
+                    self.samples_with_class[c] = files[round(len(files) * 0.1):]
 
     # -- per-dataset hooks ---------------------------------------------------
     def read_label(self, path: str) -> np.ndarray | None:
@@ -91,11 +113,23 @@ class BaseDataset:
     def __len__(self):
         return len(self.img_paths)
 
+    def get_samples_with_class(self):
+        return self.samples_with_class
+
+    def get_file_to_idx(self, file_name: str) -> int:
+        return self.file_to_idx[file_name]
+
     def load_data(self, index: int):
-        """-> (img uint8 [H,W,3], lbl uint8 [H,W], img_path)."""
+        """-> (img uint8 [H,W,3], lbl uint8 [H,W], img_path).  With a
+        ``pseudo_dir`` the label is ``<pseudo_dir>/<name>_pseudo_label.png``,
+        resized (nearest) to the image when the sizes differ."""
         img_path = self.img_paths[index]
         img = read_rgb(img_path)
-        lbl = self.read_label(self.lbl_paths[index])
+        if self.pseudo_dir is not None:
+            name = os.path.splitext(os.path.basename(img_path))[0]
+            lbl = read_gray(os.path.join(self.pseudo_dir, f"{name}_pseudo_label.png"))
+        else:
+            lbl = self.read_label(self.lbl_paths[index])
         if lbl is None:
             lbl = np.full(img.shape[:2], IGNORE, np.uint8)
         if lbl.shape != img.shape[:2]:
@@ -135,22 +169,26 @@ class CityscapesDataset(BaseDataset):
     def build_aug_fn(self, aug_type):
         if not aug_type:
             return None
+        if aug_type == "MS":
+            ch, cw = self.cfg.dataset.crop_size
+            return A.GeometricAug(ch, cw, (341, 1000), w2h_ratio=2)
+        if aug_type == "OMS":
+            return A.GeometricAug(768, 1024, (341, 1000), w2h_ratio=1280 / 960)
         if aug_type.startswith("PRS"):
             return A.Resize(*A.parse_resize_params(aug_type))
         raise NotImplementedError(
-            f"aug_type {aug_type!r} is a training aug, ROADMAP.md item A5: not ported yet"
+            f"aug_type {aug_type!r} is ROADMAP.md item A5 (DACS, FDA): not ported yet"
         )
 
 
-def build_dataset(cfg, section, aug_type=None, num_classes=None):
-    """Instantiate the dataset named by a cfg.dataset.<section> block.
-    (Reading pseudo-labels back, ``pseudo_dir``, comes with the training
-    slice.)"""
+def build_dataset(cfg, section, pseudo_dir=None, aug_type=None, num_classes=None):
+    """Instantiate the dataset named by a cfg.dataset.<section> block."""
     node = getattr(cfg.dataset, section)
     return DATASET[node.type](
         cfg,
         node.json_path,
         node.image_dir,
+        pseudo_dir=pseudo_dir,
         aug_type=aug_type if aug_type is not None else list(getattr(node, "aug_type", [])),
         num_classes=num_classes or cfg.dataset.num_classes,
     )

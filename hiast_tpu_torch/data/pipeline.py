@@ -1,13 +1,17 @@
 """Batch assembly with background prefetch.
 
 The port's copy of ``hiast_tpu/data/pipeline.py``, kept line for line so the
-numpy shuffle order, and with it the order in which IAS sees the images, is
-the JAX CLI's exactly.  ONE host pipeline produces the global batch; a
-daemon thread decodes the next batches while the card runs the current one.  (``infinite_batches``, the training stream, comes with the
-training slice.)
+numpy shuffle order, and with it the order in which IAS sees the images and
+the trainer its batches, is the JAX package's exactly.  ONE host pipeline
+produces the global batch; a daemon thread decodes the next batches while
+the card runs the current one.  One departure: ``infinite_batches`` raises
+when the dataset holds fewer samples than a batch, where the JAX stream
+would spin forever without yielding (every epoch drops its only, partial
+batch).
 """
 from __future__ import annotations
 
+import os
 import queue
 import threading
 from typing import Iterator
@@ -112,6 +116,36 @@ class BatchIterator:
         finally:
             if own_pool:
                 pool.shutdown(wait=True)
+
+
+def infinite_batches(dataset, batch_size, seed=0, prefetch=2, num_workers=None) -> Iterator[dict]:
+    """Endless stream of train batches, reshuffled per (seed, epoch), each
+    sample's augmentation drawn from its own (seed, epoch, index) stream,
+    with ``prefetch`` batches assembled ahead by a daemon thread.  One
+    thread pool serves every epoch."""
+    if len(dataset) < batch_size:
+        raise ValueError(
+            f"the dataset has {len(dataset)} samples, fewer than one batch of {batch_size}: "
+            "every epoch would drop its only (partial) batch and the stream would never yield"
+        )
+    if num_workers is None:
+        num_workers = min(batch_size, max((os.cpu_count() or 1) - 1, 0))
+
+    def produce():
+        pool = None
+        if num_workers > 0:
+            from concurrent.futures import ThreadPoolExecutor
+
+            pool = ThreadPoolExecutor(max_workers=num_workers)
+        epoch = 0
+        while True:
+            yield from BatchIterator(
+                dataset, batch_size, shuffle=True, seed=seed, epoch=epoch,
+                num_workers=num_workers, pool=pool,
+            )
+            epoch += 1
+
+    return prefetched(produce(), prefetch)
 
 
 def prefetched(iterator: Iterator, depth: int = 2) -> Iterator:

@@ -13,8 +13,11 @@ The math is the JAX package's: every LayerNorm has eps 1e-6, Mix-FFN uses the
 tanh approximation of GELU (flax's ``nn.gelu`` default; the published
 SegFormer uses the exact erf form), attention runs through the SRA kernel
 (``ops/cuda/attention.py``), and the head fuses per stage before it
-upsamples (``LinearFuse``).  The forward has no backward yet: it runs under
-``torch.no_grad()`` or ``torch.inference_mode()``.
+upsamples (``LinearFuse``).  The attention takes q and the fused kv
+projection, so under autograd its backward kernel writes the gradient of
+``kv`` as one buffer.  In train mode the head's BatchNorm normalises with
+batch statistics and updates its running ones, as the JAX model does with
+``train=True``.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from hiast_tpu_torch.ops.cuda.attention import sra_attention
+from hiast_tpu_torch.ops.cuda.attention import sra_attention_kv
 from hiast_tpu_torch.ops.resize import bilinear_resize
 from hiast_tpu_torch.registry import SEG_MODEL
 
@@ -88,11 +91,8 @@ class EfficientAttention(nn.Module):
         kv_in = x
         if self.sr_ratio > 1:
             kv_in = self.norm(_tokens(self.sr(_grid(x, h, w))))
-        kv = self.kv(kv_in)
-        # views of the two halves: the kernel reads them in place
-        k = kv[..., :c].reshape(b, -1, self.heads, d)
-        v = kv[..., c:].reshape(b, -1, self.heads, d)
-        return self.proj(sra_attention(q, k, v).reshape(b, n, c))
+        # the kernel reads the k and v halves of kv in place
+        return self.proj(sra_attention_kv(q, self.kv(kv_in)).reshape(b, n, c))
 
 
 class DWConv(nn.Module):

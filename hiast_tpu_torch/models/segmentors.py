@@ -1,17 +1,20 @@
 """Segmentors: the segmentation trunk plus its training objective.
 
 The port of ``hiast_tpu/models/segmentors.py`` (reference:
-code/sseg/models/segmentors/*.py).  This slice needs only the forward; the
-segmentors' ``compute_loss`` comes with the training slice, and the
-adversarial-warmup segmentor with the warmup slice.
+code/sseg/models/segmentors/*.py).  ``raw_apply`` and ``forward`` run with
+autograd wherever the caller has it on (a train step); the eval paths wrap
+them in ``torch.inference_mode``.  ``SelfTrainingSegmentor.compute_loss``
+is the plain self-training objective; its consistency term and the
+adversarial-warmup segmentor come with their slices.
 """
 from __future__ import annotations
 
 import torch
 
 from hiast_tpu_torch.models.deeplab_v2 import build_seg_model
+from hiast_tpu_torch.ops import losses as L
 from hiast_tpu_torch.ops.resize import bilinear_resize
-from hiast_tpu_torch.registry import MODEL
+from hiast_tpu_torch.registry import LOSS, MODEL
 
 
 class BaseSegmentor:
@@ -24,7 +27,12 @@ class BaseSegmentor:
     def raw_apply(self, img: torch.Tensor, dtype: torch.dtype) -> dict:
         """The trunk's outputs on its own grid, computed under ``dtype``
         autocast (the JAX segmentor's compute dtype; float32 runs the trunk
-        as it is)."""
+        as it is).  Master weights stay float32."""
+        if self.module.training and torch.is_grad_enabled() and self.cfg.runtime.remat:
+            raise NotImplementedError(
+                "runtime.remat (activation rematerialisation) is ROADMAP.md item A8: "
+                "not ported yet (torch.utils.checkpoint); train with runtime.remat False"
+            )
         with torch.autocast(img.device.type, dtype=dtype, enabled=dtype != torch.float32):
             return self.module(img)
 
@@ -45,7 +53,21 @@ class SourceOnlySegmentor(BaseSegmentor):
 
 @MODEL.register("SelfTrainingSegmentor")
 class SelfTrainingSegmentor(BaseSegmentor):
-    """HIAST self-training segmentor (reference self_training_segmentor.py)."""
+    """HIAST loss assembly (reference self_training_segmentor.py:30-53):
+    pseudo-label CE + KLD-to-uniform on the confident region + entropy
+    sharpening on the ignored region."""
+
+    def compute_loss(self, t_logits: torch.Tensor, t_plbl: torch.Tensor) -> dict:
+        """NCHW logits and [B, H, W] pseudo-labels -> the weighted losses
+        under the JAX package's names."""
+        pred = self.cfg.model.predictor
+        losses = {"target_seg_loss": pred.seg_loss.target_pseudo_weight * LOSS[pred.seg_loss.type](t_logits, t_plbl)}
+        confident, ignored = L.build_region_weight(t_plbl)
+        if pred.kld_loss.weight > 0:
+            losses["kld_confident_loss"] = pred.kld_loss.weight * L.kld_to_uniform(t_logits, confident)
+        if pred.ent_loss.weight > 0:
+            losses["ent_ignored_loss"] = pred.ent_loss.weight * L.entropy_sharpen(t_logits, ignored)
+        return losses
 
 
 def build_segmentor(cfg) -> BaseSegmentor:

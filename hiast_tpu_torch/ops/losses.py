@@ -1,0 +1,104 @@
+"""Segmentation losses of the self-training path.
+
+The port of ``hiast_tpu/ops/losses.py`` (reference:
+code/sseg/models/modules/losses.py:9-89 and the region regularisers of
+code/sseg/models/segmentors/self_training_segmentor.py:128-163) for the
+losses plain self-training uses: hard-label CE, KLD-to-uniform and entropy.
+SoftCE, KLDIV, MSE and BCE come with the consistency slice.
+
+Logits are NCHW [B, C, H, W], the port's layout (the JAX functions take
+NHWC); labels and region masks are [B, H, W].  Region protocol: a loss can
+be restricted by ``refer_labels`` to the 'confident' region (refer !=
+ignore), the 'ignored' region or 'all', and is then normalised by the number
+of NONZERO entries, the reference's ``loss.sum() / (loss != 0).sum()``.
+Reductions run in float32 whatever the logits' dtype.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from hiast_tpu_torch.registry import LOSS
+
+IGNORE_INDEX = 255
+
+
+def region_mask(refer_labels: torch.Tensor, region: str, ignore_index: int = IGNORE_INDEX) -> torch.Tensor:
+    """Boolean [B, H, W] mask selecting the requested region."""
+    if region == "ignored":
+        return refer_labels == ignore_index
+    if region == "confident":
+        return refer_labels != ignore_index
+    if region == "all":
+        return torch.ones_like(refer_labels, dtype=torch.bool)
+    raise ValueError(f"{region!r} is not a valid region")
+
+
+def _masked_nonzero_mean(loss: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """sum(loss * mask) / count(loss * mask != 0), guarding empty regions.
+    ``loss`` is [B, H, W] or [B, C, H, W]; ``mask`` is [B, H, W] bool."""
+    if loss.dim() == 4:
+        mask = mask[:, None]
+    masked = loss * mask.to(loss.dtype)
+    count = (masked != 0).sum().clamp(min=1).to(loss.dtype)
+    return masked.sum() / count
+
+
+def build_region_weight(plbl: torch.Tensor, ignore_index: int = IGNORE_INDEX):
+    """(confident, ignored) float [B, H, W] masks from a pseudo-label map
+    (reference self_training_segmentor.py:128-137, kept per pixel)."""
+    confident = (plbl != ignore_index).float()
+    return confident, 1.0 - confident
+
+
+def _log_softmax(logits: torch.Tensor) -> torch.Tensor:
+    return F.log_softmax(logits.float(), dim=1)
+
+
+@LOSS.register("CE")
+def cross_entropy(
+    logits: torch.Tensor,
+    labels: torch.Tensor,
+    weights=None,
+    ignore_index: int = IGNORE_INDEX,
+    refer_labels: torch.Tensor | None = None,
+    region: str = "confident",
+) -> torch.Tensor:
+    """Hard-label CE; mean over valid pixels, or region-masked nonzero-mean.
+    The label's log-probability is gathered (the JAX one-hot contraction was
+    a TPU workaround for slow gathers; the sum it forms is the same)."""
+    logp = _log_softmax(logits)
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    nll = -logp.gather(1, safe[:, None]).squeeze(1)
+    if weights is not None:
+        w = torch.as_tensor(weights, dtype=nll.dtype, device=nll.device)[safe]
+        nll = nll * w
+    nll = torch.where(valid, nll, torch.zeros_like(nll))
+    if refer_labels is None:
+        if weights is None:
+            denom = valid.sum().clamp(min=1).to(nll.dtype)
+        else:
+            denom = torch.where(valid, w, torch.zeros_like(w)).sum().clamp(min=1e-12)
+        return nll.sum() / denom
+    return _masked_nonzero_mean(nll, region_mask(refer_labels, region, ignore_index))
+
+
+def kld_to_uniform(logits: torch.Tensor, pixel_weight: torch.Tensor) -> torch.Tensor:
+    """KLD-to-uniform smoothing on the confident region, with the reference's
+    normalisation (self_training_segmentor.py:153-163): its weight is
+    broadcast to [B, C, H, W], so ``val_num`` counts #valid-pixels x C and
+    the loss is -1/C * sum(w * log_softmax) / (#pixels * C)."""
+    num_classes = logits.shape[1]
+    logp = _log_softmax(logits)
+    val_num = (pixel_weight > 0).sum().clamp(min=1).float() * num_classes
+    return -(pixel_weight[:, None] * logp).sum() / (num_classes * val_num)
+
+
+def entropy_sharpen(logits: torch.Tensor, pixel_weight: torch.Tensor) -> torch.Tensor:
+    """Entropy regulariser on the ignored region, same normalisation:
+    -sum(softmax * w * log_softmax) / (#pixels * C)."""
+    num_classes = logits.shape[1]
+    logp = _log_softmax(logits)
+    val_num = (pixel_weight > 0).sum().clamp(min=1).float() * num_classes
+    return -(logp.exp() * pixel_weight[:, None] * logp).sum() / val_num

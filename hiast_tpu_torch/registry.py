@@ -42,9 +42,11 @@ class Registry(dict):
 
 
 DATASET = Registry("dataset")
+LOSS = Registry("loss")
 MODEL = Registry("model")
 PSEUDO_POLICY = Registry("pseudo_policy")
 SEG_MODEL = Registry("seg_model")
+TRAINER = Registry("trainer")
 
 
 def populate() -> None:
@@ -57,5 +59,7 @@ def populate() -> None:
         "hiast_tpu_torch.models.segmentors",
         "hiast_tpu_torch.data.datasets",
         "hiast_tpu_torch.pseudo.generator",
+        "hiast_tpu_torch.ops.losses",
+        "hiast_tpu_torch.selftrain.trainers",
     ):
         importlib.import_module(mod)

@@ -99,7 +99,7 @@ def _generate_both(fixture_root, tmp_path, seg_model):
     port_cli.main(["--device", "cpu", "--pseudo_resume_from", pth, "--pseudo_save_dir", port_dir, *overrides])
     # CPU: plain versions only
     assert launch_counts == {"ias_hist": 0, "ias_select": 0}
-    assert attention.launch_counts == {"sra_attention": 0}
+    assert attention.launch_counts == {"sra_attention": 0, "sra_attention_bwd": 0}
     return _artifacts(jax_dir), _artifacts(port_dir)
 
 

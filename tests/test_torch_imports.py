@@ -54,7 +54,9 @@ def test_the_port_has_files_to_check():
     files = _port_files()
     assert len(files) > 20
     for module in (("ops", "cuda", "select_kernel.py"), ("ops", "cuda", "attention.py"),
-                   ("models", "segformer.py"), ("evaluation.py",), ("cli", "validate.py")):
+                   ("models", "segformer.py"), ("evaluation.py",), ("cli", "validate.py"),
+                   ("ops", "losses.py"), ("selftrain", "train_state.py"), ("selftrain", "trainers.py"),
+                   ("utils", "recorder.py"), ("utils", "logging_utils.py"), ("cli", "train.py")):
         assert os.path.join(REPO, "hiast_tpu_torch", *module) in files
 
 
@@ -71,6 +73,7 @@ def test_no_jax_or_reference_package_imports(path):
 def test_importing_the_cli_loads_no_jax():
     code = (
         "import sys; import hiast_tpu_torch.cli.generate_pseudo_labels, hiast_tpu_torch.cli.validate,"
+        " hiast_tpu_torch.cli.train,"
         " hiast_tpu_torch.registry as r;"
         " r.populate();"
         " bad = sorted(m for m in sys.modules if m.split('.')[0] in"

@@ -13,7 +13,12 @@ test allows the one or two pixels its size makes likely.  The per-class
 confidence sums are float atomics (order varies): rtol 1e-4.  The SRA
 attention kernel rounds P to bf16 at the plain version's place, from f32
 scores summed in another order: max |diff| <= 1e-2 on bf16 outputs of
-magnitude ~1 (the JAX bf16 test allows 2e-2).
+magnitude ~1 (the JAX bf16 test allows 2e-2).  Its row statistics m and l
+are f32 sums over the same scores: rtol 1e-5.  The backward kernels are held
+to the JAX bf16 gradient test's bound (tests/test_pallas_attention.py:95),
+|g - r| <= 0.03 max|r| + 0.1 |r| per gradient: they round dS and the
+outputs to bf16 where the plain version does, but take delta from the bf16
+output O (FlashAttention-2's form) and sum in another order.
 """
 import json
 import os
@@ -175,5 +180,61 @@ def test_sra_attention_refuses_what_the_kernel_does_not_take(cuda_device):
         A.sra_attention(q.float(), k.float(), v.float())  # the card takes bf16 only
     with pytest.raises(ValueError):
         A.sra_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))  # heads not D apart
-    with pytest.raises(RuntimeError, match="no backward"):
-        A.sra_attention(q.requires_grad_(), k, v)
+    with pytest.raises(TypeError):  # autograd takes the same inputs as the forward
+        A.sra_attention(q.float().requires_grad_(), k.float(), v.float())
+
+
+def _within_bf16_grad_bound(got: torch.Tensor, want: torch.Tensor) -> bool:
+    got, want = got.float(), want.float()
+    return bool(((got - want).abs() <= 0.03 * want.abs().max() + 0.1 * want.abs()).all())
+
+
+def test_sra_attention_saves_the_row_statistics(cuda_device):
+    """Under autograd the forward writes each row's max m and sum l of the
+    scaled scores; without autograd it writes none and returns the same
+    output."""
+    b, nq, nkv, h, d = 2, 700, 200, 2, 64
+    q, k, v = _qkv(9, b, nq, nkv, h, d, cuda_device)
+    out, stats = A._forward_cuda(q, k, v, with_stats=True)
+    plain_out, _ = A._forward_cuda(q, k, v, with_stats=False)
+    m, l = A.sra_attention_stats_plain(q, k)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain_out)
+    torch.testing.assert_close(stats[0], m, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(stats[1], l, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,nq,nkv,h,d", [
+    (6, 8192, 512, 2, 64),   # stage 2 of a B5 training step (batch 6, 512x1024)
+    (6, 512, 512, 8, 64),    # stage 4
+    (1, 700, 96, 2, 32),     # ragged: N_q and N_kv off every tile, D = 32
+])
+def test_sra_attention_backward_matches_plain(cuda_device, b, nq, nkv, h, d):
+    """dq and d(kv) through the autograd Function (the kernels) against
+    sra_attention_bwd_plain, with k and v the halves of one kv."""
+    rng = np.random.default_rng(10)
+    q = torch.from_numpy(rng.normal(size=(b, nq, h, d)).astype(np.float32)).to(cuda_device).bfloat16()
+    kv = torch.from_numpy(rng.normal(size=(b, nkv, 2 * h * d)).astype(np.float32)).to(cuda_device).bfloat16()
+    do = torch.from_numpy(rng.normal(size=(b, nq, h, d)).astype(np.float32)).to(cuda_device).bfloat16()
+    qg, kvg = q.clone().requires_grad_(), kv.clone().requires_grad_()
+    A.reset_launch_counts()
+    A.sra_attention_kv(qg, kvg).backward(do)
+    torch.cuda.synchronize()
+    assert A.launch_counts == {"sra_attention": 1, "sra_attention_bwd": 1}
+    dq, dk, dv = A.sra_attention_bwd_plain(q, *A.split_kv(kv, h), do)
+    got_dk, got_dv = A.split_kv(kvg.grad, h)
+    for name, got, want in (("dq", qg.grad, dq), ("dk", got_dk, dk), ("dv", got_dv, dv)):
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        assert _within_bf16_grad_bound(got, want), (name, float((got.float() - want.float()).abs().max()))
+
+
+def test_sra_attention_backward_takes_a_strided_cotangent(cuda_device):
+    """dO in another layout than the output's is copied into one the kernel
+    reads; separate k and v get their gradients as views of one d(kv)."""
+    b, nq, nkv, h, d = 1, 300, 128, 2, 64
+    q, k, v = (x.requires_grad_() for x in _qkv(11, b, nq, nkv, h, d, cuda_device))
+    do = torch.randn(b, h, nq, d, device=cuda_device).bfloat16().transpose(1, 2)
+    A.sra_attention(q, k, v).backward(do)
+    dq, dk, dv = A.sra_attention_bwd_plain(q.detach(), k.detach(), v.detach(), do)
+    for got, want in ((q.grad, dq), (k.grad, dk), (v.grad, dv)):
+        assert _within_bf16_grad_bound(got, want)
