@@ -5,7 +5,8 @@
 
 1. Prints the card's name and power limit, then builds every CUDA kernel of
    the port from hiast_tpu_torch/csrc/ with nvcc (sm_90a), one nvcc per
-   source, all started together.
+   source, all started together, and prints the registers and spill bytes
+   of each attention kernel from the ptxas report (a spill fails the run).
 2. IAS kernel phase: holds ``ias_hist`` and ``ias_select`` against their
    plain PyTorch versions on seeded logits at the main path's shapes
    ([2, 19, 768, 1536] float32; the [2, 19, 96, 192] OS8 grid for the
@@ -33,7 +34,9 @@
    the ragged case, checks the saved statistics against their plain form,
    and times the backward, the plain backward and the backward of
    ``scaled_dot_product_attention`` (the yardstick) beside the bound, and
-   the forward at these shapes with and without its statistics.
+   the forward at these shapes with and without its statistics.  Two
+   calls of the backward on the same inputs must give the same bits.  Each
+   stage prints the kernel's time over SDPA's (forward and backward).
 6. SegFormer-B5 slice: saves seeded random B5 weights as a mmseg-layout
    ``.pth``, runs IAS generation through the CLI on the same 4 images
    (``--pseudo_resume_from``, batch 2) and checks the six artifacts and the
@@ -193,6 +196,23 @@ def device_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def attention_resources(log_path: str) -> list:
+    """(kernel, registers at launch, spill bytes) of each SRA attention
+    kernel in a library's ``-Xptxas -v`` report."""
+    import re
+
+    rows = []
+    for line in open(log_path):
+        entry = re.search(r"\d+(sra_attn_[a-z_]+)ILi(\d+)E", line) if "Compiling entry" in line else None
+        if entry:
+            rows.append([f"{entry.group(1)}<{entry.group(2)}>", None, 0])
+        elif rows and "spill stores" in line:
+            rows[-1][2] = sum(int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", line))
+        elif rows and rows[-1][1] is None and "Used" in line:
+            rows[-1][1] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return rows
 
 
 def bound_ms(bytes_moved: float, ops: float) -> tuple[float, str]:
@@ -419,7 +439,8 @@ def attention_phase(torch, clock_hz: float) -> dict:
         t_exp = bh * nq * nkv / (MUFU_EXP_PER_SM_CLOCK * N_SMS * clock_hz)
         bound = max(t_bytes, t_mma, t_exp) * 1e3
         print(f"sra_attention [{name}] B*H={bh} N_q={nq} N_kv={nkv} D={d}: max |diff| {err:.4g}, "
-              f"mean |diff| {mean_err:.4g}; {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
+              f"mean |diff| {mean_err:.4g}; {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms "
+              f"(kernel/sdpa {ms / lib:.3f}), "
               f"bound {bound:.4f} ms (bytes {t_bytes * 1e3:.4f}, matmul {t_mma * 1e3:.4f}, "
               f"exp {t_exp * 1e3:.4f}); {depth} launches per forward")
         for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("bound_ms", bound)):
@@ -430,7 +451,8 @@ def attention_phase(torch, clock_hz: float) -> dict:
         torch.cuda.empty_cache()
     row["bound_by"] = "bytes" if t_bytes_sum >= t_ops_sum else "operations"
     print(f"sra_attention per batch ({B}x{H}x{W}, {sum(B5_DEPTHS)} launches): {row['ms']:.4f} ms, "
-          f"plain {row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+          f"plain {row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms "
+          f"(kernel/sdpa {row['ms'] / row['library_ms']:.3f}), bound {row['bound_ms']:.4f} ms "
           f"({row['bound_by']}; SM clock {clock_hz / 1e6:.0f} MHz)")
     return row
 
@@ -475,6 +497,12 @@ def attention_bwd_phase(torch, clock_hz: float) -> dict:
             errs.append(f"{gname} max {float(diff.max()):.4g} mean {float(diff.mean()):.4g} "
                         f"(max|ref| {float(ref.abs().max()):.4g})")
             row["max_abs_err"] = max(row["max_abs_err"], float(diff.max()))
+        dkv_again = torch.empty_like(kv)
+        dq_again = A._backward_cuda(q, k, v, out, stats, do, *A.split_kv(dkv_again, h))
+        torch.cuda.synchronize()
+        check(torch.equal(dq, dq_again) and torch.equal(dkv, dkv_again),
+              f"sra_attention_bwd [{name}]: two calls on the same inputs differ")
+        del dkv_again, dq_again
         ms = device_ms(torch, lambda: A._backward_cuda(q, k, v, out, stats, do, dk, dv))
         plain = device_ms(torch, lambda: A.sra_attention_bwd_plain(q, k, v, do), reps=5)
         f_ms = device_ms(torch, lambda: A._forward_cuda(q, k, v, with_stats=False))
@@ -490,9 +518,10 @@ def attention_bwd_phase(torch, clock_hz: float) -> dict:
         t_exp = bh * nq * nkv / (MUFU_EXP_PER_SM_CLOCK * N_SMS * clock_hz)
         bound = max(t_bytes, t_mma, t_exp) * 1e3
         print(f"sra_attention_bwd [{name}] B*H={bh} N_q={nq} N_kv={nkv} D={d}: {'; '.join(errs)}; "
-              f"{ms:.4f} ms, plain {plain:.4f} ms, sdpa backward {lib:.4f} ms, bound {bound:.4f} ms "
-              f"(bytes {t_bytes * 1e3:.4f}, matmul {t_mma * 1e3:.4f}, exp {t_exp * 1e3:.4f}); "
-              f"forward {f_ms:.4f} ms, with its statistics {fs_ms:.4f} ms; {depth} launches per step")
+              f"{ms:.4f} ms, plain {plain:.4f} ms, sdpa backward {lib:.4f} ms (kernel/sdpa {ms / lib:.3f}), "
+              f"bound {bound:.4f} ms (bytes {t_bytes * 1e3:.4f}, matmul {t_mma * 1e3:.4f}, exp "
+              f"{t_exp * 1e3:.4f}); same bits on a second call; forward {f_ms:.4f} ms, with its statistics "
+              f"{fs_ms:.4f} ms; {depth} launches per step")
         for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("bound_ms", bound)):
             row[key] += depth * val
         fwd_ms += depth * f_ms
@@ -503,7 +532,8 @@ def attention_bwd_phase(torch, clock_hz: float) -> dict:
         torch.cuda.empty_cache()
     row["bound_by"] = "bytes" if t_bytes_sum >= t_ops_sum else "operations"
     print(f"sra_attention_bwd per training step ({TRAIN_B}x{TRAIN_H}x{TRAIN_W}, {sum(B5_DEPTHS)} launches): "
-          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa backward {row['library_ms']:.4f} ms, "
+          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa backward {row['library_ms']:.4f} ms "
+          f"(kernel/sdpa {row['ms'] / row['library_ms']:.3f}), "
           f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); the forward at these shapes "
           f"{fwd_ms:.4f} ms per step, {fwd_stats_ms:.4f} ms with its statistics")
     return row
@@ -987,6 +1017,9 @@ def main(argv: list[str]) -> int:
             for line in f:
                 if "registers" in line or "Compiling entry" in line:
                     print("  ptxas:", line.strip())
+        for kernel, regs, spill in attention_resources(lib + ".log"):
+            print(f"ptxas {kernel}: {regs} registers at launch, {spill} spill bytes")
+            check(spill == 0, f"{kernel} spills {spill} bytes")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -18,9 +18,10 @@ on the CPU its forward and backward are ``sra_attention_plain`` and
 raise -- they never fall back.  Without autograd (inference, or inputs that
 need no grad) the forward launches with no residuals, as the serving path
 always has.  Each forward launch adds one to
-``launch_counts['sra_attention']``, each backward launch (three kernels: dQ,
-dK/dV by query chunks, the chunk reduction) one to
-``launch_counts['sra_attention_bwd']``; nothing else touches them.
+``launch_counts['sra_attention']``, each backward launch (the dQ kernel, the
+dK/dV kernel and, where the query range is cut into chunks, the chunk
+reduction) one to ``launch_counts['sra_attention_bwd']``; nothing else
+touches them.
 """
 from __future__ import annotations
 
@@ -31,9 +32,10 @@ import torch
 from hiast_tpu_torch.ops.cuda import build
 
 HEAD_DIMS = (32, 64)  # the kernel's template instances; every MiT stage has D = 64 (B0: 32)
-MAX_BATCH_HEADS = 65535  # grid.y
-TILE = 64  # query and K/V rows per tile in the kernels
-BLOCKS_PER_SM = 4  # the dK/dV kernel cuts the query range into chunks to give each SM about this many blocks
+MAX_BATCH_HEADS = 65535  # the largest B * H the kernels are held to
+TILE = 64  # rows of one warpgroup's tile: K/V rows of a dK/dV warpgroup, query rows of a dK/dV stage
+KV_BLOCK = 128  # K/V rows of one dK/dV work item (two warpgroups); each SM runs one item at a time
+MAX_CHUNKS = 32  # the dK/dV kernel's query chunks, at most
 
 launch_counts = {"sra_attention": 0, "sra_attention_bwd": 0}
 
@@ -183,13 +185,25 @@ def _forward_cuda(q, k, v, with_stats: bool):
 
 
 def tiles_per_chunk(bh: int, n_q: int, n_kv: int, n_sms: int) -> int:
-    """Query tiles per chunk of the dK/dV kernel: enough chunks that the
-    grid (KV tiles x B*H x chunks) gives each SM about ``BLOCKS_PER_SM``
-    blocks, no more chunks than query tiles."""
+    """Query tiles (of ``TILE`` rows) per chunk of the dK/dV kernel.  Where
+    the 64-row K/V tiles of all heads fill the card (at least one per SM),
+    one chunk takes every query tile and the kernel writes dK and dV
+    straight into d(kv).  Where they do not, the query range is cut into the
+    number of chunks (at most ``MAX_CHUNKS``) whose work items, one per SM
+    at a time, finish soonest: the fewest query tiles on the busiest SM,
+    ties to fewer chunks (fewer f32 partials to add)."""
     q_tiles = -(-n_q // TILE)
-    base = bh * -(-n_kv // TILE)
-    chunks = min(q_tiles, max(1, -(-BLOCKS_PER_SM * n_sms // base)))
-    return -(-q_tiles // chunks)
+    if bh * -(-n_kv // TILE) >= n_sms:
+        return q_tiles
+    blocks = bh * -(-n_kv // KV_BLOCK)
+    best = None
+    for want in range(1, min(q_tiles, MAX_CHUNKS) + 1):
+        tpc = -(-q_tiles // want)
+        rounds = -(-blocks * -(-q_tiles // tpc) // n_sms)
+        cost = rounds * tpc
+        if best is None or cost < best[0]:
+            best = (cost, tpc)
+    return best[1]
 
 
 def _backward_cuda(q, k, v, out, stats, do, dk, dv) -> torch.Tensor:
@@ -202,13 +216,13 @@ def _backward_cuda(q, k, v, out, stats, do, dk, dv) -> torch.Tensor:
     chunks = -(-(-(-n_q // TILE)) // tpc)
     dq = torch.empty((b, n_q, h, d), dtype=q.dtype, device=q.device)
     rowstats = torch.empty((b * h, n_q, 4), dtype=torch.float32, device=q.device)
-    partial = torch.empty((chunks, 2, b * h, n_kv, d), dtype=torch.float32, device=q.device)
+    partial = torch.empty((chunks, 2, b * h, n_kv, d), dtype=torch.float32, device=q.device) if chunks > 1 else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _kernel("sra_attention_bwd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
             stats[0].data_ptr(), stats[1].data_ptr(), dq.data_ptr(), rowstats.data_ptr(),
-            partial.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            None if partial is None else partial.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             b, h, n_q, n_kv, d, tpc,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
             out.stride(0), out.stride(1), do.stride(0), do.stride(1), dq.stride(0), dq.stride(1),

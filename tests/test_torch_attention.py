@@ -196,9 +196,13 @@ def test_row_statistics_plain():
 
 
 def test_query_chunks_fill_the_card():
-    """The dK/dV kernel's query chunks: a training step's stage 1 (48 KV
-    tiles) is cut into chunks to reach about 4 blocks per SM of 132, never
-    into more chunks than query tiles."""
-    assert tiles_per_chunk(6, 32768, 512, 132) == 47  # 11 chunks: 528 blocks
-    assert tiles_per_chunk(48, 512, 512, 132) == 4    # stage 4: 2 chunks
-    assert tiles_per_chunk(1, 100, 96, 132) == 1      # 2 query tiles, 2 chunks
+    """The dK/dV kernel's query chunks: only where the 64-row K/V tiles of
+    all heads are fewer than the SMs (a training step's stages 1 and 2: 48
+    and 96 tiles for 132) is the query range cut, into the chunk count whose
+    work items (128 K/V rows each, one per SM at a time) leave the fewest
+    query tiles on the busiest SM; elsewhere one chunk takes all."""
+    assert tiles_per_chunk(6, 32768, 512, 132) == 47   # stage 1: 11 chunks, 264 items in 2 rounds
+    assert tiles_per_chunk(12, 8192, 512, 132) == 16   # stage 2: 8 chunks, 384 items in 3 rounds
+    assert tiles_per_chunk(30, 2048, 512, 132) == 32   # stage 3: 240 tiles, one chunk of all 32
+    assert tiles_per_chunk(48, 512, 512, 132) == 8     # stage 4: one chunk of all 8
+    assert tiles_per_chunk(1, 100, 96, 132) == 1       # 2 query tiles, 2 chunks

@@ -18,7 +18,8 @@ are f32 sums over the same scores: rtol 1e-5.  The backward kernels are held
 to the JAX bf16 gradient test's bound (tests/test_pallas_attention.py:95),
 |g - r| <= 0.03 max|r| + 0.1 |r| per gradient: they round dS and the
 outputs to bf16 where the plain version does, but take delta from the bf16
-output O (FlashAttention-2's form) and sum in another order.
+output O (FlashAttention-2's form) and sum in another order.  They add
+every sum in a fixed order, so two calls give the same bits.
 """
 import json
 import os
@@ -238,3 +239,68 @@ def test_sra_attention_backward_takes_a_strided_cotangent(cuda_device):
     dq, dk, dv = A.sra_attention_bwd_plain(q.detach(), k.detach(), v.detach(), do)
     for got, want in ((q.grad, dq), (k.grad, dk), (v.grad, dv)):
         assert _within_bf16_grad_bound(got, want)
+
+
+def _bwd_inputs(seed, b, nq, nkv, h, d, device):
+    rng = np.random.default_rng(seed)
+    return tuple(
+        torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device).bfloat16()
+        for s in ((b, nq, h, d), (b, nkv, 2 * h * d), (b, nq, h, d))
+    )
+
+
+@pytest.mark.parametrize("b,nq,nkv,h,d", [
+    (1, 129, 130, 3, 64),    # N_q one past the 128-row query tile, N_kv two past the forward's 128-row K/V tile
+    (2, 200, 65, 2, 32),     # D = 32; N_kv one past the backward's 64-row tile
+    (150, 256, 64, 2, 64),   # B*H 300: 600 forward items, so the persistent grid wraps on 132 SMs
+    (65535, 2, 3, 1, 32),    # the largest B*H the kernels take
+])
+def test_sra_attention_crosses_the_tile_edges(cuda_device, b, nq, nkv, h, d):
+    """The forward, its row statistics and the backward at the edges of the
+    wgmma design's tiles and of its persistent grid."""
+    q, kv, do = _bwd_inputs(12, b, nq, nkv, h, d, cuda_device)
+    k, v = A.split_kv(kv, h)
+    out, stats = A._forward_cuda(q, k, v, with_stats=True)
+    want = A.sra_attention_plain(q, k, v)
+    m, lsum = A.sra_attention_stats_plain(q, k)
+    torch.cuda.synchronize()
+    assert float((out.float() - want.float()).abs().max()) <= 1e-2
+    torch.testing.assert_close(stats[0], m, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(stats[1], lsum, rtol=1e-5, atol=1e-5)
+    dkv = torch.empty_like(kv)
+    dk, dv = A.split_kv(dkv, h)
+    dq = A._backward_cuda(q, k, v, out, stats, do, dk, dv)
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), A.sra_attention_bwd_plain(q, k, v, do)):
+        assert _within_bf16_grad_bound(got, ref), (name, float((got.float() - ref.float()).abs().max()))
+
+
+@pytest.mark.parametrize("b,nq,nkv,h,chunks", [
+    (2, 4096, 512, 1, True),    # 16 K/V tiles of 64 rows for 132 SMs: f32 chunk partials and their sum
+    (6, 1024, 512, 5, False),   # 240 tiles: dK and dV written straight into d(kv)
+])
+def test_sra_attention_backward_chunked_and_direct(cuda_device, b, nq, nkv, h, chunks):
+    """The dK/dV kernel on both sides of the chunking rule."""
+    n_sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert (A.tiles_per_chunk(b * h, nq, nkv, n_sms) < -(-nq // A.TILE)) == chunks
+    q, kv, do = _bwd_inputs(13, b, nq, nkv, h, 64, cuda_device)
+    qg, kvg = q.clone().requires_grad_(), kv.clone().requires_grad_()
+    A.sra_attention_kv(qg, kvg).backward(do)
+    dq, dk, dv = A.sra_attention_bwd_plain(q, *A.split_kv(kv, h), do)
+    got_dk, got_dv = A.split_kv(kvg.grad, h)
+    for name, got, want in (("dq", qg.grad, dq), ("dk", got_dk, dk), ("dv", got_dv, dv)):
+        assert _within_bf16_grad_bound(got, want), (name, float((got.float() - want.float()).abs().max()))
+
+
+@pytest.mark.parametrize("b,nq,nkv,h", [(6, 8192, 512, 2), (6, 2048, 512, 5)])  # chunked, direct
+def test_sra_attention_backward_gives_the_same_bits(cuda_device, b, nq, nkv, h):
+    """Two backward calls on the same inputs: identical dq and d(kv)."""
+    q, kv, do = _bwd_inputs(14, b, nq, nkv, h, 64, cuda_device)
+    k, v = A.split_kv(kv, h)
+    out, stats = A._forward_cuda(q, k, v, with_stats=True)
+    grads = []
+    for _ in range(2):
+        dkv = torch.empty_like(kv)
+        dq = A._backward_cuda(q, k, v, out, stats, do, *A.split_kv(dkv, h))
+        grads.append((dq, dkv))
+    torch.cuda.synchronize()
+    assert torch.equal(grads[0][0], grads[1][0]) and torch.equal(grads[0][1], grads[1][1])
