@@ -6,13 +6,20 @@
 1. Prints the card's name and power limit, then builds every CUDA kernel of
    the port from hiast_tpu_torch/csrc/ with nvcc (sm_90a), one nvcc per
    source, all started together, and prints the registers and spill bytes
-   of each attention kernel from the ptxas report (a spill fails the run).
+   of each attention and IAS kernel from the ptxas report (a spill fails
+   the run).
 2. IAS kernel phase: holds ``ias_hist`` and ``ias_select`` against their
-   plain PyTorch versions on seeded logits at the main path's shapes
-   ([2, 19, 768, 1536] float32; the [2, 19, 96, 192] OS8 grid for the
-   histogram too), with and without the second sample cut off by ``nvalid``,
-   and times each (median of 20 runs, CUDA events) beside its plain version
-   and its memory bound.
+   plain PyTorch versions at the main path's shapes ([2, 19, 768, 1536]
+   float32; the [2, 19, 96, 192] OS8 grid for the histogram too), with and
+   without the second sample cut off by ``nvalid``, on two seeded inputs:
+   Gaussian (N(0, 9), almost no confident pixel) and peaked
+   (``peaked_logits``: 48x48 blocks of one class drawn with Cityscapes'
+   pixel shares, that class +6 plus an exponential margin of mean 6 over
+   N(0, 1) logits; it prints its shares of p >= 0.99, p == 1.0 and the last
+   bin, about 0.73, 0.16 and 0.44).  Two ``ias_select`` calls must give the
+   same bits.  Times each kernel on each input (median of 20 runs, CUDA
+   events) beside its plain version and its bytes bound; the kernels' JSON
+   rows carry the peaked input's times.
 3. DeepLab slice: writes 4 synthetic 768x1536 target images, runs IAS
    pseudo-label generation through the port's CLI ``main`` on full-width
    DeepLab-v2/ResNet-101 (random weights from a seed, batch 2, 2048 bins,
@@ -64,7 +71,7 @@
 8. Prints one JSON line of the kernels, the card line again, and last
    ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` are those of
    the path it serves in this run: ``ias_hist``/``ias_select`` from the
-   SegFormer-B5 generation run, ``sra_attention`` and
+   SegFormer-B5 generation run (their times from the peaked input), ``sra_attention`` and
    ``sra_attention_bwd`` from the training run.  For ``sra_attention`` the
    times are per batch of the serving path (each stage's time times its
    launches per forward, 3, 6, 40, 3, summed), for ``sra_attention_bwd``
@@ -77,14 +84,19 @@ share, the forward's FLOPs and the host's PNG costs.
 Any failed check raises, so the script exits non-zero and prints no ok
 line.  Without a CUDA device it exits with code 2 before doing anything.
 Tolerances (the kernels and the plain versions round exp/log differently by
-an ulp or two, and float atomics add in no fixed order):
+an ulp or two, and sum in other orders):
   ias_hist   row sums exact; bin-level L1 <= max(2, 1e-4 * N) (pixels within
              an ulp of a bin edge may move); the IAS thresholds computed from
              the two histograms agree within 1/num_bins.
   ias_select labels equal except at most 1e-4 * N pixels, each within 1e-6 of
              its threshold; per-sample counts differ by at most the number of
-             such pixels; per-class confidence sums agree to rtol 1e-4 plus
-             one unit per differing pixel.
+             such pixels; per-class confidence sums within rtol 1e-5 plus one
+             unit per differing pixel of the plain version's selected
+             confidences summed in float64 (the kernel sums in fixed point,
+             2^-26 units, exact in any order; the plain float32 index_add_
+             drifts by up to ~1e-3 on the peaked input, and its error is
+             printed).  ``max_abs_err`` is that sums error.  Two calls give
+             identical labels, counts and sums.
   sra_attention  max |diff| <= 1e-2 on bf16 outputs of magnitude ~1: both
              round P to bf16 after the f32 softmax, from f32 scores summed in
              another order, and round O to bf16 once (one bf16 ulp at 1 is
@@ -143,6 +155,36 @@ TRAIN_ATTN_SHAPES = (
 )
 
 
+# Cityscapes train-set pixel shares of the 19 classes, in percent (road,
+# sidewalk, building, wall, fence, pole, light, sign, vegetation, terrain,
+# sky, person, rider, car, truck, bus, train, motorcycle, bicycle)
+CITYSCAPES_SHARES = (36.9, 6.08, 22.8, 0.656, 0.877, 1.23, 0.208, 0.551, 15.9, 1.16,
+                     4.01, 1.22, 0.135, 7.00, 0.268, 0.235, 0.233, 0.099, 0.414)
+PEAK_BLOCK = 48
+
+
+def gaussian_logits(shape: tuple, seed: int) -> np.ndarray:
+    """N(0, 9) logits: almost no pixel is confident."""
+    return np.random.default_rng(seed).standard_normal(shape, dtype=np.float32) * 3
+
+
+def peaked_logits(shape: tuple, seed: int) -> np.ndarray:
+    """Logits shaped like a trained model's: each sample is a map of 48x48
+    blocks of one class, drawn with Cityscapes' pixel shares; the other
+    logits are N(0, 1) and the block's class gets +6 plus an exponential
+    margin of mean 6 per pixel.  About 73% of the pixels have p >= 0.99 and
+    16% p == 1.0 exactly (float32), so 44% fall in bin 2047 of 2048."""
+    b, c, h, w = shape
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape, dtype=np.float32)
+    shares = np.resize(np.asarray(CITYSCAPES_SHARES), c)
+    blocks = rng.choice(c, size=(b, -(-h // PEAK_BLOCK), -(-w // PEAK_BLOCK)), p=shares / shares.sum())
+    cls = np.repeat(np.repeat(blocks, PEAK_BLOCK, 1), PEAK_BLOCK, 2)[:, None, :h, :w]
+    margin = (6.0 + rng.exponential(6.0, size=(b, 1, h, w))).astype(np.float32)
+    np.put_along_axis(x, cls, np.take_along_axis(x, cls, 1) + margin, 1)
+    return x
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
@@ -198,16 +240,18 @@ def device_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def attention_resources(log_path: str) -> list:
-    """(kernel, registers at launch, spill bytes) of each SRA attention
-    kernel in a library's ``-Xptxas -v`` report."""
+def kernel_resources(log_path: str) -> list:
+    """(kernel, registers at launch, spill bytes) of each SRA attention and
+    IAS kernel in a library's ``-Xptxas -v`` report."""
     import re
 
     rows = []
     for line in open(log_path):
-        entry = re.search(r"\d+(sra_attn_[a-z_]+)ILi(\d+)E", line) if "Compiling entry" in line else None
+        entry = (re.search(r"\d+((?:sra_attn|ias)_[a-z_]+?)(?:I((?:L[a-z]\d+E)+)E|E)", line)
+                 if "Compiling entry" in line else None)
         if entry:
-            rows.append([f"{entry.group(1)}<{entry.group(2)}>", None, 0])
+            args = ",".join(re.findall(r"L[a-z](\d+)E", entry.group(2) or ""))
+            rows.append([f"{entry.group(1)}<{args}>" if args else entry.group(1), None, 0])
         elif rows and "spill stores" in line:
             rows[-1][2] = sum(int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", line))
         elif rows and rows[-1][1] is None and "Used" in line:
@@ -221,82 +265,110 @@ def bound_ms(bytes_moved: float, ops: float) -> tuple[float, str]:
 
 
 def kernel_phase(torch):
+    """ias_hist and ias_select against their plain versions on the Gaussian
+    and the peaked inputs; returns their JSON rows' numbers, timed on the
+    peaked input (a trained model's confidences)."""
     from hiast_tpu_torch.ops.cuda.select_kernel import (
         ias_hist, ias_hist_plain, ias_select, ias_select_plain,
     )
     from hiast_tpu_torch.pseudo import policies as P
 
     dev = torch.device("cuda")
-    rng = np.random.default_rng(0)
-    full = torch.from_numpy(rng.standard_normal((B, C, H, W), dtype=np.float32) * 3).to(dev)
-    low = torch.from_numpy(rng.standard_normal((B, C, LOW_H, LOW_W), dtype=np.float32) * 3).to(dev)
     hw, n = H * W, B * H * W
-    state = P.IASState(
-        torch.full((C,), 0.9, dtype=torch.float32, device=dev),
-        torch.zeros(C, dtype=torch.float32, device=dev),
-    )
-    results = {}
-
-    # -- ias_hist ---------------------------------------------------------
-    hist_err, thr_main = 0.0, None
-    for label, logits, nvalid in (
-        ("full", full, n), ("full, 2nd sample cut", full, hw), ("low", low, B * LOW_H * LOW_W),
-    ):
-        got = ias_hist(logits, nvalid, NUM_BINS)
-        want = ias_hist_plain(logits, nvalid, NUM_BINS)
-        torch.cuda.synchronize()
-        check(torch.equal(got.sum(1), want.sum(1)), f"ias_hist {label}: row sums differ")
-        check(float(got.sum()) == min(nvalid, logits.numel() // C), f"ias_hist {label}: total")
-        l1 = float((got - want).abs().sum())
-        check(l1 <= max(2.0, 1e-4 * nvalid), f"ias_hist {label}: bin L1 {l1}")
-        thr_got = P.ias_update(state, got, 0.2, 0.9, 8.0)
-        thr_want = P.ias_update(state, want, 0.2, 0.9, 8.0)
-        thr_diff = float((thr_got - thr_want).abs().max())
-        check(thr_diff <= 1.0 / NUM_BINS, f"ias_hist {label}: threshold diff {thr_diff}")
-        hist_err = max(hist_err, float((got - want).abs().max()))
-        print(f"ias_hist   [{label}] nvalid={nvalid} bin L1={l1:g} threshold diff={thr_diff:g}")
-        if label == "full":
-            thr_main = thr_want
-
-    ms = device_ms(torch, lambda: ias_hist(full, n, NUM_BINS))
-    plain = device_ms(torch, lambda: ias_hist_plain(full, n, NUM_BINS))
-    b_ms, b_by = bound_ms(n * C * 4 + C * NUM_BINS * 4, n * C * 4.0)
     low_n = B * LOW_H * LOW_W
-    low_ms = device_ms(torch, lambda: ias_hist(low, low_n, NUM_BINS))
-    low_bound, _ = bound_ms(low_n * C * 4 + C * NUM_BINS * 4, low_n * C * 4.0)
-    print(f"ias_hist   [full] {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    print(f"ias_hist   [low]  {low_ms:.4f} ms, bound {low_bound:.4f} ms")
-    results["ias_hist"] = dict(max_abs_err=hist_err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+    results = {
+        "ias_hist": dict(max_abs_err=0.0, bound_by="bytes"),
+        "ias_select": dict(max_abs_err=0.0, bound_by="bytes"),
+    }
+    for kind, make in (("gaussian", gaussian_logits), ("peaked", peaked_logits)):
+        full = torch.from_numpy(make((B, C, H, W), 0)).to(dev)
+        low = torch.from_numpy(make((B, C, LOW_H, LOW_W), 1)).to(dev)
+        maxprob, pred = P.confidences(full)
+        bins = torch.clamp((maxprob * NUM_BINS).long(), 0, NUM_BINS - 1)
+        print(f"IAS input [{kind}]: p >= 0.99 {float((maxprob >= 0.99).float().mean()):.4f}, "
+              f"p == 1.0 {float((maxprob == 1.0).float().mean()):.4f}, "
+              f"bin {NUM_BINS - 1} {float((bins == NUM_BINS - 1).float().mean()):.4f}")
+        state = P.IASState(
+            torch.full((C,), 0.9, dtype=torch.float32, device=dev),
+            torch.zeros(C, dtype=torch.float32, device=dev),
+        )
 
-    # -- ias_select -------------------------------------------------------
-    sel_err = 0.0
-    for label, nvalid in (("full", n), ("full, 2nd sample cut", hw)):
-        lab, cnt, sums, _ = ias_select(full, thr_main, nvalid)
-        lab_p, cnt_p, sums_p, maxprob = ias_select_plain(full, thr_main, nvalid, with_maxprob=True)
-        torch.cuda.synchronize()
-        _, pred = P.confidences(full)
-        differ = lab != lab_p
-        n_diff = int(differ.sum())
-        near = (maxprob - thr_main[pred]).abs() <= 1e-6
-        check(n_diff <= 1e-4 * n, f"ias_select {label}: {n_diff} labels differ")
-        check(not bool((differ & ~near).any()), f"ias_select {label}: a label differs away from its threshold")
-        cnt_diff = int((cnt - cnt_p).abs().sum())
-        check(cnt_diff <= n_diff, f"ias_select {label}: counts differ by {cnt_diff}")
-        if nvalid == hw:
-            check(int(cnt[1:].sum()) == 0 and bool((lab[1:] == 255).all()),
-                  f"ias_select {label}: the cut sample was selected")
-        err = float((sums - sums_p).abs().max())
-        check(bool(((sums - sums_p).abs() <= 1e-4 * sums_p.abs() + n_diff).all()), f"ias_select {label}: sums")
-        sel_err = max(sel_err, err)
-        print(f"ias_select [{label}] nvalid={nvalid} labels differing={n_diff} count diff={cnt_diff} sums max err={err:g}")
+        # -- ias_hist -----------------------------------------------------
+        thr_main = None
+        for label, logits, nvalid in (
+            ("full", full, n), ("full, 2nd sample cut", full, hw), ("low", low, low_n),
+        ):
+            got = ias_hist(logits, nvalid, NUM_BINS)
+            want = ias_hist_plain(logits, nvalid, NUM_BINS)
+            torch.cuda.synchronize()
+            check(torch.equal(got.sum(1), want.sum(1)), f"ias_hist {kind} {label}: row sums differ")
+            check(float(got.sum()) == min(nvalid, logits.numel() // C), f"ias_hist {kind} {label}: total")
+            l1 = float((got - want).abs().sum())
+            check(l1 <= max(2.0, 1e-4 * nvalid), f"ias_hist {kind} {label}: bin L1 {l1}")
+            thr_got = P.ias_update(state, got, 0.2, 0.9, 8.0)
+            thr_want = P.ias_update(state, want, 0.2, 0.9, 8.0)
+            thr_diff = float((thr_got - thr_want).abs().max())
+            check(thr_diff <= 1.0 / NUM_BINS, f"ias_hist {kind} {label}: threshold diff {thr_diff}")
+            err = float((got - want).abs().max())
+            results["ias_hist"]["max_abs_err"] = max(results["ias_hist"]["max_abs_err"], err)
+            print(f"ias_hist   [{kind}, {label}] nvalid={nvalid} row sums exact, bin L1={l1:g} "
+                  f"threshold diff={thr_diff:g}")
+            if label == "full":
+                thr_main = thr_want
 
-    ms = device_ms(torch, lambda: ias_select(full, thr_main, n))
-    plain = device_ms(torch, lambda: ias_select_plain(full, thr_main, n))
-    b_ms, b_by = bound_ms(n * C * 4 + C * 4 + n + B * C * 4 + C * 4, n * C * 4.0)
-    print(f"ias_select [full] {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    results["ias_select"] = dict(max_abs_err=sel_err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
-    del full, low
-    torch.cuda.empty_cache()
+        # -- ias_select ---------------------------------------------------
+        for label, nvalid in (("full", n), ("full, 2nd sample cut", hw)):
+            lab, cnt, sums, _ = ias_select(full, thr_main, nvalid)
+            again = ias_select(full, thr_main, nvalid)
+            lab_p, cnt_p, sums_p, _ = ias_select_plain(full, thr_main, nvalid)
+            torch.cuda.synchronize()
+            check(torch.equal(lab, again[0]) and torch.equal(cnt, again[1]) and torch.equal(sums, again[2]),
+                  f"ias_select {kind} {label}: two calls on the same logits differ")
+            differ = lab != lab_p
+            n_diff = int(differ.sum())
+            near = (maxprob - thr_main[pred]).abs() <= 1e-6
+            check(n_diff <= 1e-4 * n, f"ias_select {kind} {label}: {n_diff} labels differ")
+            check(not bool((differ & ~near).any()),
+                  f"ias_select {kind} {label}: a label differs away from its threshold")
+            cnt_diff = int((cnt - cnt_p).abs().sum())
+            check(cnt_diff <= n_diff, f"ias_select {kind} {label}: counts differ by {cnt_diff}")
+            if nvalid == hw:
+                check(int(cnt[1:].sum()) == 0 and bool((lab[1:] == 255).all()),
+                      f"ias_select {kind} {label}: the cut sample was selected")
+            # the plain version's float32 index_add_ drifts over ~1e6 terms a
+            # class; hold both to its confidences summed in float64
+            sel_p = lab_p != 255
+            exact = torch.zeros(C, dtype=torch.float64, device=dev).index_add_(
+                0, pred[sel_p], maxprob[sel_p].double())
+            err = float((sums.double() - exact).abs().max())
+            rel = float(((sums.double() - exact).abs() / exact.clamp(min=1)).max())
+            plain_rel = float(((sums_p.double() - exact).abs() / exact.clamp(min=1)).max())
+            check(bool(((sums.double() - exact).abs() <= 1e-5 * exact + n_diff).all()),
+                  f"ias_select {kind} {label}: sums off by {err} (relative {rel})")
+            results["ias_select"]["max_abs_err"] = max(results["ias_select"]["max_abs_err"], err)
+            print(f"ias_select [{kind}, {label}] nvalid={nvalid} labels differing={n_diff} count diff={cnt_diff} "
+                  f"sums against float64: max err {err:g}, relative {rel:.3g} (plain float32 sums {plain_rel:.3g}); "
+                  f"a second call gives the same bits")
+
+        # -- times (bytes bound: the logits read once, the outputs written once)
+        hist_ms = device_ms(torch, lambda: ias_hist(full, n, NUM_BINS))
+        hist_plain = device_ms(torch, lambda: ias_hist_plain(full, n, NUM_BINS))
+        hist_bound, _ = bound_ms(n * C * 4 + C * NUM_BINS * 4, n * C * 4.0)
+        low_ms = device_ms(torch, lambda: ias_hist(low, low_n, NUM_BINS))
+        low_bound, _ = bound_ms(low_n * C * 4 + C * NUM_BINS * 4, low_n * C * 4.0)
+        sel_ms = device_ms(torch, lambda: ias_select(full, thr_main, n))
+        sel_plain = device_ms(torch, lambda: ias_select_plain(full, thr_main, n))
+        sel_bound, _ = bound_ms(n * C * 4 + C * 4 + n + B * C * 4 + C * 4, n * C * 4.0)
+        print(f"ias_hist   [{kind}, full] {hist_ms:.4f} ms, plain {hist_plain:.4f} ms, bound {hist_bound:.4f} ms "
+              f"(bytes; {hist_bound / hist_ms:.3f} of it)")
+        print(f"ias_hist   [{kind}, low]  {low_ms:.4f} ms, bound {low_bound:.4f} ms")
+        print(f"ias_select [{kind}, full] {sel_ms:.4f} ms, plain {sel_plain:.4f} ms, bound {sel_bound:.4f} ms "
+              f"(bytes; {sel_bound / sel_ms:.3f} of it)")
+        if kind == "peaked":
+            results["ias_hist"].update(ms=hist_ms, plain_ms=hist_plain, bound_ms=hist_bound)
+            results["ias_select"].update(ms=sel_ms, plain_ms=sel_plain, bound_ms=sel_bound)
+        del full, low, maxprob, pred, bins
+        torch.cuda.empty_cache()
     return results
 
 
@@ -1012,14 +1084,18 @@ def main(argv: list[str]) -> int:
     t0 = time.perf_counter()
     libs = build.build(build.source_names())
     print(f"built {len(libs)} kernel libraries in {time.perf_counter() - t0:.2f} s")
+    reported = set()
     for lib in libs:
         with open(lib + ".log") as f:
             for line in f:
                 if "registers" in line or "Compiling entry" in line:
                     print("  ptxas:", line.strip())
-        for kernel, regs, spill in attention_resources(lib + ".log"):
+        for kernel, regs, spill in kernel_resources(lib + ".log"):
             print(f"ptxas {kernel}: {regs} registers at launch, {spill} spill bytes")
             check(spill == 0, f"{kernel} spills {spill} bytes")
+            reported.add(kernel.split("<")[0])
+    check({"ias_hist_kernel", "ias_hist_reduce", "ias_select_kernel", "ias_select_reduce"} <= reported,
+          f"the ptxas report lacks IAS kernels: {sorted(reported)}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -8,8 +8,11 @@ TPU kernel each replaces, what bounds it on an H100 and how it is built.
 Each wrapper takes NCHW float32 logits [B, C, H, W] and a count ``nvalid``
 of valid pixels in b-major order (the generator's pad samples are a suffix).
 For a tensor on the CPU it runs the plain version beside it; for a CUDA
-tensor it launches the kernel or raises — it never falls back.  Each launch
-adds one to ``launch_counts[<kernel>]``; nothing else touches the counts.
+tensor it launches the kernel or raises — it never falls back (a refused
+cluster launch raises too).  Each wrapper call that launches adds one to
+``launch_counts[<kernel>]``, the small reduce launch that follows each
+kernel included; nothing else touches the counts.  Two ``ias_select`` calls on the same
+inputs give the same bits: its sums run in a fixed order.
 """
 from __future__ import annotations
 
@@ -25,9 +28,13 @@ MAX_CLASSES = 32  # the kernels keep one pixel's logits in registers
 launch_counts = {"ias_hist": 0, "ias_select": 0}
 
 _VOID, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# name: (argument types, result type)
 _SIGNATURES = {
-    "ias_hist": [_VOID, _INT, _INT, _LL, _LL, _INT, _VOID, _VOID],
-    "ias_select": [_VOID, _VOID, _INT, _INT, _LL, _LL, _VOID, _VOID, _VOID, _VOID, _VOID],
+    "ias_hist_scratch": ([_VOID, _INT, _INT, _LL, _INT], _LL),
+    "ias_hist": ([_VOID, _INT, _INT, _LL, _LL, _INT, _VOID, _VOID, _LL, _VOID], _INT),
+    "ias_select_parts": ([_VOID, _INT, _INT, _LL], _LL),
+    "ias_select": ([_VOID, _VOID, _INT, _INT, _LL, _LL, _VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _LL, _VOID],
+                   _INT),
 }
 _bound: dict = {}
 
@@ -37,12 +44,18 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-def _kernel(name: str):
-    if name not in _bound:
-        fn = getattr(build.load("select_kernel"), name)
-        fn.argtypes = _SIGNATURES[name]
-        fn.restype = ctypes.c_int
+def bind(lib: ctypes.CDLL) -> None:
+    """Launch the kernels of ``lib`` from here on (a build of
+    ``csrc/select_kernel.cu``, with other flags, say)."""
+    for name, (argtypes, restype) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, restype
         _bound[name] = fn
+
+
+def _kernel(name: str):
+    if not _bound:
+        bind(build.load("select_kernel"))
     return _bound[name]
 
 
@@ -74,6 +87,17 @@ def _launch(name: str, device: torch.device, *args) -> None:
     launch_counts[name] += 1
 
 
+def _scratch_size(name: str, logits: torch.Tensor, *args) -> int:
+    """The scratch a kernel needs for these logits (``ias_hist_scratch``:
+    uint32 words; ``ias_select_parts``: rows of per-block partial sums)."""
+    b, c, h, w = logits.shape
+    with torch.cuda.device(logits.device):
+        size = _kernel(name)(logits.data_ptr(), b, c, h * w, *args)
+    if size < 1:
+        raise RuntimeError(f"{name} failed with CUDA error {-size}")
+    return size
+
+
 # ---------------------------------------------------------------------------
 # ias_hist
 # ---------------------------------------------------------------------------
@@ -97,11 +121,12 @@ def ias_hist(logits: torch.Tensor, nvalid: int, num_bins: int) -> torch.Tensor:
     if logits.device.type == "cpu":
         return ias_hist_plain(logits, nvalid, num_bins)
     b, c, h, w = logits.shape
-    # u32 counts in int32 storage: a batch holds far fewer than 2^31 pixels
-    hist = torch.zeros((c, num_bins), dtype=torch.int32, device=logits.device)
+    hist = torch.empty((c, num_bins), dtype=torch.float32, device=logits.device)
+    words = _scratch_size("ias_hist_scratch", logits, num_bins)
+    scratch = torch.empty(words, dtype=torch.int32, device=logits.device)  # uint32 cluster histograms
     _launch("ias_hist", logits.device, logits.data_ptr(), b, c, h * w, int(nvalid),
-            num_bins, hist.data_ptr())
-    return hist.float()
+            num_bins, hist.data_ptr(), scratch.data_ptr(), words)
+    return hist
 
 
 # ---------------------------------------------------------------------------
@@ -148,10 +173,13 @@ def ias_select(
     thresholds = thresholds.contiguous()
     dev = logits.device
     labels = torch.empty((b, h, w), dtype=torch.uint8, device=dev)
-    counts = torch.zeros((b, c), dtype=torch.int32, device=dev)
-    sums = torch.zeros((c,), dtype=torch.float32, device=dev)
+    counts = torch.empty((b, c), dtype=torch.int32, device=dev)
+    sums = torch.empty((c,), dtype=torch.float32, device=dev)
     maxprob = torch.empty((b, h, w), dtype=torch.float32, device=dev) if with_maxprob else None
+    parts = _scratch_size("ias_select_parts", logits)
+    part_cnt = torch.empty((parts, c), dtype=torch.int32, device=dev)
+    part_sum = torch.empty((parts, c), dtype=torch.int64, device=dev)  # uint64 fixed point
     _launch("ias_select", dev, logits.data_ptr(), thresholds.data_ptr(), b, c, h * w,
             int(nvalid), labels.data_ptr(), maxprob.data_ptr() if with_maxprob else None,
-            counts.data_ptr(), sums.data_ptr())
+            counts.data_ptr(), sums.data_ptr(), part_cnt.data_ptr(), part_sum.data_ptr(), parts)
     return labels, counts, sums, maxprob

@@ -10,7 +10,8 @@ Tolerances: the kernels and the plain versions use one formula and sum the
 classes in one order, so labels and histogram counts should agree exactly;
 a pixel within an ulp of a bin edge or a threshold may still move, so each
 test allows the one or two pixels its size makes likely.  The per-class
-confidence sums are float atomics (order varies): rtol 1e-4.  The SRA
+confidence sums run in another order than the plain version's (per warp,
+per block, then a fixed reduce): rtol 1e-4; two calls give the same bits.  The SRA
 attention kernel rounds P to bf16 at the plain version's place, from f32
 scores summed in another order: max |diff| <= 1e-2 on bf16 outputs of
 magnitude ~1 (the JAX bf16 test allows 2e-2).  Its row statistics m and l
@@ -48,7 +49,7 @@ def _logits(seed, device):
     return torch.from_numpy(x).to(device)
 
 
-@pytest.mark.parametrize("num_bins", [256, 2048, 4096])  # 4096: the global-atomic path
+@pytest.mark.parametrize("num_bins", [256, 2048, 4096])  # clusters of 1, 8 and 16 blocks
 @pytest.mark.parametrize("nvalid", [B * H * W, H * W + 7])
 def test_hist_kernel_matches_plain(cuda_device, num_bins, nvalid):
     x = _logits(1, cuda_device)
@@ -92,6 +93,86 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         K.ias_select(x, thr.cpu(), B * H * W)  # thresholds on another device
     with pytest.raises(ValueError):
         K.ias_select(torch.zeros(1, 33, 4, 4, device=cuda_device), torch.zeros(33, device=cuda_device), 16)
+
+
+def _peaked(seed, device, b=B, c=C, h=H, w=W):
+    """Logits shaped like a trained model's: 8x8 blocks of one class over
+    N(0, 1), that class +6 plus an exponential margin of mean 6, so most
+    pixels have p >= 0.99 and many p == 1.0 exactly."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(b, c, h, w)).astype(np.float32)
+    cls = np.repeat(np.repeat(rng.integers(0, c, size=(b, 1, -(-h // 8), -(-w // 8))), 8, 2), 8, 3)[..., :h, :w]
+    margin = (6.0 + rng.exponential(6.0, size=(b, 1, h, w))).astype(np.float32)
+    np.put_along_axis(x, cls, np.take_along_axis(x, cls, 1) + margin, 1)
+    return torch.from_numpy(x).to(device)
+
+
+def _check_hist(x, nvalid, num_bins):
+    got = K.ias_hist(x, nvalid, num_bins)
+    want = K.ias_hist_plain(x, nvalid, num_bins)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.sum(1), want.sum(1), rtol=0, atol=0)
+    assert float(got.sum()) == nvalid
+    assert float((got - want).abs().sum()) <= 2
+
+
+def _check_select(x, thr, nvalid):
+    labels, counts, sums, maxprob = K.ias_select(x, thr, nvalid, with_maxprob=True)
+    want = K.ias_select_plain(x, thr, nvalid, with_maxprob=True)
+    torch.cuda.synchronize()
+    differ = int((labels != want[0]).sum())
+    assert differ <= 1
+    assert int((counts - want[1]).abs().sum()) <= differ
+    torch.testing.assert_close(sums, want[2], rtol=1e-4, atol=float(differ))
+    torch.testing.assert_close(maxprob, want[3], rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("nvalid", [B * H * W, H * W + 7])
+def test_kernels_match_plain_on_peaked_logits(cuda_device, nvalid):
+    x = _peaked(6, cuda_device)
+    assert float((K.ias_select_plain(x, torch.zeros(C, device=cuda_device), nvalid, True)[3] == 1.0)
+                 .float().mean()) > 0.05
+    _check_hist(x, nvalid, 2048)
+    thr = torch.full((C,), 0.999, device=cuda_device)
+    thr[::2] = 0.99
+    _check_select(x, thr, nvalid)
+
+
+@pytest.mark.parametrize("c", [9, 19])
+# every cluster size the launcher picks (1, 4, 8, 16), and at 19 x 8192 a
+# 16-block cluster whose slices (38,912 B) outgrow 24 KB
+@pytest.mark.parametrize("num_bins", [256, 2048, 4096, 8192])
+def test_hist_kernel_cluster_sizes(cuda_device, c, num_bins):
+    for x in (_peaked(7, cuda_device, c=c), _logits(8, cuda_device)[:, :c].contiguous()):
+        _check_hist(x, B * H * W, num_bins)
+
+
+@pytest.mark.parametrize("h,w", [(37, 51), (5, 3)])  # H*W odd: scalar loads and stores
+def test_kernels_take_any_pixel_count(cuda_device, h, w):
+    x = _peaked(9, cuda_device, h=h, w=w)
+    for nvalid in (B * h * w, h * w + 1):
+        _check_hist(x, nvalid, 2048)
+        _check_select(x, torch.full((C,), 0.995, device=cuda_device), nvalid)
+
+
+def test_kernels_take_logits_off_16_byte_alignment(cuda_device):
+    base = _peaked(10, cuda_device)
+    buf = torch.empty(base.numel() + 1, device=cuda_device)
+    x = buf[1:].view(base.shape)  # contiguous, 4 bytes past an aligned start
+    x.copy_(base)
+    _check_hist(x, B * H * W, 2048)
+    _check_select(x, torch.full((C,), 0.995, device=cuda_device), B * H * W)
+
+
+@pytest.mark.parametrize("peaked", [False, True])
+def test_select_kernel_gives_the_same_bits(cuda_device, peaked):
+    x = _peaked(11, cuda_device, h=96, w=160) if peaked else _logits(12, cuda_device)
+    thr = torch.from_numpy(np.random.default_rng(13).uniform(0.3, 0.999, C).astype(np.float32)).to(cuda_device)
+    first = K.ias_select(x, thr, x.numel() // C, with_maxprob=True)
+    for _ in range(3):
+        again = K.ias_select(x, thr, x.numel() // C, with_maxprob=True)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
 
 
 def test_generator_on_the_card_matches_the_cpu(cuda_device, tmp_path):

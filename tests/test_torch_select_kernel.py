@@ -13,6 +13,12 @@ values moved to NCHW for the port):
   rather than exp(m - lse), which can move a pixel lying within 1e-6 of a
   bin edge or a threshold, so only such pixels may differ.
 
+Both comparisons also run on peaked logits shaped like a trained model's
+(most pixels at p >= 0.99, many at p == 1.0 exactly, so the clamp into the
+last bin is reached), with exact ties between the two largest logits
+(first-max argmax) and thresholds set to some pixels' own confidences (a
+pixel exactly at its threshold is selected).
+
 The kernels themselves are held against the plain versions on a card by
 tests/test_torch_kernels_cuda.py.
 """
@@ -130,3 +136,109 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         K.ias_hist(xt, PIXELS, 0)
     with pytest.raises(ValueError):
         K.ias_select(xt, torch.full((18,), 0.5), PIXELS)  # wrong class count
+
+
+def _peaked_logits(seed):
+    """Logits shaped like a trained model's (NHWC for JAX, NCHW for the
+    port): 8x8 blocks of one class over N(0, 1), that class +6 plus an
+    exponential margin of mean 6, so most pixels have p >= 0.99 and many
+    p == 1.0 exactly (the clamp into bin nb - 1).  Some pixels get an exact
+    tie between their two largest logits (first-max argmax)."""
+    rng = np.random.default_rng(seed)
+    b, h, w, c = SHAPE
+    x = rng.normal(size=SHAPE).astype(np.float32)
+    cls = np.repeat(np.repeat(rng.integers(0, c, size=(b, h // 8, w // 8)), 8, 1), 8, 2)
+    margin = (6.0 + rng.exponential(6.0, size=(b, h, w))).astype(np.float32)
+    np.put_along_axis(x, cls[..., None], np.take_along_axis(x, cls[..., None], -1) + margin[..., None], -1)
+    tie = rng.random((b, h, w)) < 0.05
+    other = (cls + 1 + rng.integers(0, c - 1, size=(b, h, w))) % c
+    top = np.take_along_axis(x, cls[..., None], -1)
+    cur = np.take_along_axis(x, other[..., None], -1)
+    np.put_along_axis(x, other[..., None], np.where(tie[..., None], top, cur), -1)
+    return x, torch.from_numpy(np.ascontiguousarray(np.moveaxis(x, -1, 1))), tie
+
+
+def _thresholds_at_pixels(maxprob, pred, seed):
+    """Per class, the confidence of one of its pixels (so that pixel sits
+    exactly at its threshold), else 0.9."""
+    rng = np.random.default_rng(seed)
+    mp, pr = maxprob.numpy().reshape(-1), pred.numpy().reshape(-1)
+    thr = np.full(SHAPE[-1], 0.9, np.float32)
+    for c in np.unique(pr):
+        idx = np.flatnonzero(pr == c)
+        thr[c] = min(mp[rng.choice(idx)], 0.999)
+    return thr
+
+
+def _near_bin_edge(p, num_bins):
+    """Pixels whose confidence lies within 1e-6 of an inner bin edge.  The
+    clamp at p * num_bins == num_bins is no edge: an ulp below 1 still lands
+    in the last bin."""
+    s = p.astype(np.float64) * num_bins
+    edge = np.rint(s)
+    return int(np.sum((np.abs(s - edge) <= 1e-6 * num_bins) & (edge > 0) & (edge < num_bins)))
+
+
+@pytest.mark.parametrize("n_samples", [2, 1])
+def test_plain_versions_match_xla_on_peaked_logits(n_samples):
+    """XLA's confidence can differ from the port's by an ulp (1e-6 near 1),
+    so, as against the Pallas kernels, only a pixel within 1e-6 of a bin
+    edge or of its threshold may move."""
+    x, xt, tie = _peaked_logits(11)
+    mp_t, pred_t = TP.confidences(xt)
+    assert int((mp_t == 1.0).sum()) > 0 and tie.any()
+    mp, pred = JP.confidences(jnp.asarray(x))
+    np.testing.assert_allclose(mp_t.numpy(), np.asarray(mp), rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(pred_t.numpy(), np.asarray(pred))
+    nchw = np.moveaxis(x, -1, 1)
+    first_max = np.argmax(nchw == nchw.max(1, keepdims=True), axis=1)  # ties: the smaller class id
+    np.testing.assert_array_equal(pred_t.numpy(), first_max)
+
+    nvalid = n_samples * PIXELS
+    w = jnp.broadcast_to(jnp.asarray(_valid(n_samples), jnp.float32)[:, None, None], pred.shape)
+    want_hist = np.asarray(JP.class_prob_histogram(mp, pred, 19, 2048, w))
+    got_hist = K.ias_hist(xt, nvalid, 2048).numpy()
+    np.testing.assert_array_equal(got_hist.sum(1), want_hist.sum(1))
+    near_edge = _near_bin_edge(mp_t.numpy().reshape(-1)[:nvalid], 2048)
+    assert np.abs(got_hist - want_hist).sum() <= 2 * near_edge
+    assert got_hist[:, -1].sum() >= int((mp_t.reshape(-1)[:nvalid] == 1.0).sum()) > 0
+
+    thr = _thresholds_at_pixels(mp_t, pred_t, 12)
+    plbl = JP.select_pseudo_labels(mp, pred, jnp.asarray(thr))
+    plbl = jnp.where(jnp.asarray(_valid(n_samples))[:, None, None], plbl, JP.IGNORE)
+    labels, counts, sums, _ = K.ias_select(xt, torch.from_numpy(thr), nvalid)
+    at_thr = (mp_t.numpy() == thr[pred_t.numpy()]) & (labels.numpy() != 255)
+    assert at_thr.any()  # pixels exactly at their threshold are selected
+    near_thr = np.abs(mp_t.numpy() - thr[pred_t.numpy()]) <= 1e-6
+    differ = labels.numpy() != np.asarray(plbl).astype(np.uint8)
+    assert not np.any(differ & ~near_thr)
+    want_counts = np.asarray(JP.per_sample_class_counts(plbl, 19))
+    assert np.abs(counts.numpy() - want_counts).sum() <= differ.sum()
+    want_sums, _ = JP.class_prob_sums(plbl, mp, 19)
+    np.testing.assert_allclose(sums.numpy(), np.asarray(want_sums), rtol=1e-5, atol=float(differ.sum()))
+
+
+def test_plain_versions_match_pallas_interpret_on_peaked_logits():
+    x, xt, _ = _peaked_logits(13)
+    nvalid = 2 * PIXELS
+    _, _, want_hist = fused_hist(
+        jnp.asarray(x), jnp.asarray(nvalid), num_bins=2048, interpret=True, with_pixels=False,
+    )
+    got_hist = K.ias_hist(xt, nvalid, 2048).numpy()
+    np.testing.assert_array_equal(got_hist.sum(1), np.asarray(want_hist).sum(1))
+    mp_t, pred_t = TP.confidences(xt)
+    near_edge = _near_bin_edge(mp_t.numpy().reshape(-1), 2048)
+    assert np.abs(got_hist - np.asarray(want_hist)).sum() <= 2 * near_edge
+    assert got_hist[:, -1].sum() >= int((mp_t == 1.0).sum()) > 0
+
+    thr = _thresholds_at_pixels(mp_t, pred_t, 14)
+    plbl, mp, per_sample, sums, _ = fused_select_batched(
+        jnp.asarray(x), jnp.asarray(thr), nvalid=jnp.asarray(nvalid), interpret=True
+    )
+    labels, counts, got_sums, maxprob = K.ias_select(xt, torch.from_numpy(thr), nvalid, with_maxprob=True)
+    np.testing.assert_allclose(maxprob.numpy(), np.asarray(mp), atol=1e-6)
+    near_thr = np.abs(maxprob.numpy() - thr[pred_t.numpy()]) <= 1e-6
+    differ = labels.numpy() != np.asarray(plbl).astype(np.uint8)
+    assert not np.any(differ & ~near_thr)
+    assert np.abs(counts.numpy() - np.asarray(per_sample)).sum() <= differ.sum()
+    np.testing.assert_allclose(got_sums.numpy(), np.asarray(sums), rtol=1e-5, atol=float(differ.sum()))
