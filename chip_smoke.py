@@ -68,18 +68,47 @@
    rate (FlopCounterMode over a step's forward and backward, convolution
    backward as twice the forward, plus the attention's 4 + 8 N_q N_kv D per
    (b, h) and block, over 989 TFLOP/s).
-8. Prints one JSON line of the kernels, the card line again, and last
+8. The main path's step 2, HIAST consistency training on DeepLab-v2/R101
+   (3, 4, 23, 3), OS8, 19 classes, random weights from the trainer's seed,
+   hiast_tpu/configs/sl_1.yaml with hiast_setting.yaml given as overrides:
+   ``ConsistencySelfTrainingTrainer``, Adam 3e-6 with Cosine, frozen
+   BatchNorm affine, batch 6 of 512x1024 'MS' crops with the CCA strong
+   view made on the card, CE + 0.1 KLD + 1.0 entropy + SoftCE 0.5 on the
+   ignored region against the EMA teacher (gamma 0.999), CopyPaste over 14
+   hard classes (3 donors at most).  It writes 12 synthetic 1024x2048
+   target images, the first through zlib with rows under every filter
+   type, pseudo-labels holding all 19 classes, and the round's
+   ``samples_with_class.json`` and ``class_mean_probabilities.npy`` (a
+   random-weight model's own would name donors for almost no hard class);
+   holds the native PNG unfilter against the plain one on the all-filters
+   file; trains 8 iterations through ``cli.train.main`` with validation of
+   the student and the teacher at the last, then 8 steady steps after 4
+   more; checks that no kernel launched, the four losses are finite, every
+   batch pasted pixels, ``model_last.pth`` holds the full state with the
+   EMA at step 8 and ``ema_model_last.pth`` exists, and that the training
+   data unfiltered natively; prints s/iter, images/s, peak memory, MFU
+   (the student's forward and backward and the teacher's forward, counted
+   as in 7, over 989 TFLOP/s), the CCA chain's and the EMA update's device
+   ms, the device's idle share over 3 profiled steps (the profiler's table
+   only with ``--profile``), and the host ms of a sample with its donor;
+   then generates the next
+   round's pseudo-labels from ``ema_model_last.pth`` over the 12 images
+   (launches: ias_hist 6, ias_select 6), and checks that PIL was never
+   imported.
+9. Prints one JSON line of the kernels, the card line again, and last
    ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` are those of
    the path it serves in this run: ``ias_hist``/``ias_select`` from the
-   SegFormer-B5 generation run (their times from the peaked input), ``sra_attention`` and
-   ``sra_attention_bwd`` from the training run.  For ``sra_attention`` the
+   generation from the consistency run's EMA teacher (the main path; their
+   times from the peaked input), ``sra_attention`` and
+   ``sra_attention_bwd`` from the SegFormer training run.  For ``sra_attention`` the
    times are per batch of the serving path (each stage's time times its
    launches per forward, 3, 6, 40, 3, summed), for ``sra_attention_bwd``
    per training step.
 
-``--profile`` adds, for the DeepLab and both B5 serving runs and a short
-training run, a torch.profiler breakdown by CUDA kernel, the device's idle
-share, the forward's FLOPs and the host's PNG costs.
+``--profile`` adds, for the DeepLab and both B5 serving runs and short
+SegFormer and consistency training runs, a torch.profiler breakdown by
+CUDA kernel, the device's idle share, the forward's FLOPs and the host's
+PNG costs.
 
 Any failed check raises, so the script exits non-zero and prints no ok
 line.  Without a CUDA device it exits with code 2 before doing anything.
@@ -746,15 +775,17 @@ def write_val_set(root: str) -> tuple[str, str]:
     return write_image_set(root, "val", N_IMAGES, 4)
 
 
-def b5_generation(torch, pth: str, save_dir: str, json_path: str, image_dir: str, n_images: int) -> dict:
-    """B5 IAS generation through the CLI (768x1536, batch 2) from ``pth``
-    into ``save_dir``; checks the label files and the launches."""
+def cli_generation(torch, pth: str, save_dir: str, json_path: str, image_dir: str, n_images: int,
+                   seg_argv: list) -> dict:
+    """IAS generation through the CLI (768x1536, batch 2) from ``pth`` into
+    ``save_dir`` with the trunk ``seg_argv`` names; checks the label files
+    and the launches (B1 and B2 once a batch, B3 52 a batch on B5)."""
     from hiast_tpu_torch.cli import generate_pseudo_labels as cli
     from hiast_tpu_torch.data.png import decode_png_file
 
     argv = [
         "--device", "cuda", "--pseudo_resume_from", pth, "--pseudo_save_dir", save_dir,
-        "model.type", "SelfTrainingSegmentor", "model.seg_model.type", "SegFormer_B5",
+        "model.type", "SelfTrainingSegmentor", *seg_argv,
         "dataset.num_classes", str(C), "dataset.target.type", "Cityscapes",
         "dataset.target.json_path", json_path, "dataset.target.image_dir", image_dir,
         "pseudo_policy.type", "IAS", "pseudo_policy.batch_size", str(B),
@@ -765,8 +796,8 @@ def b5_generation(torch, pth: str, save_dir: str, json_path: str, image_dir: str
     torch.cuda.synchronize()
     counts = read_counts()
     n_batches = -(-n_images // B)
-    expected = {"ias_hist": n_batches, "ias_select": n_batches, "sra_attention": sum(B5_DEPTHS) * n_batches,
-                "sra_attention_bwd": 0}
+    attention = sum(B5_DEPTHS) * n_batches if "SegFormer_B5" in seg_argv else 0
+    expected = {"ias_hist": n_batches, "ias_select": n_batches, "sra_attention": attention, "sra_attention_bwd": 0}
     check(counts == expected, f"generation into {save_dir}: launch counts {counts}, expected {expected}")
     names = sorted(os.listdir(save_dir))
     check(len(names) == n_images and all(n.endswith("_pseudo_label.png") for n in names), f"label files {names}")
@@ -775,6 +806,10 @@ def b5_generation(torch, pth: str, save_dir: str, json_path: str, image_dir: str
     print(f"generation [{os.path.relpath(save_dir, REPO)}] {n_images} images: batch loop "
           f"{generator.run_seconds:.3f} s, launches {counts}, selected share {float((lbl < C).mean()):.3f}")
     return counts
+
+
+B5_ARGV = ["model.seg_model.type", "SegFormer_B5"]
+R101_ARGV = ["model.seg_model.type", "DeepLab_V2", "model.seg_model.backbone_layers", "[3, 4, 23, 3]"]
 
 
 def train_argv(work_dir: str, pseudo_dir: str, json_path: str, image_dir: str, val_json: str, val_dir: str,
@@ -846,7 +881,7 @@ def training_phase(torch, work: str, profile: bool) -> dict:
     json_path, image_dir = write_image_set(work, "train", N_TRAIN_IMAGES, 7)
     print(f"wrote {N_TRAIN_IMAGES} target images of {VAL_H}x{VAL_W} in {time.perf_counter() - t0:.2f} s")
     pseudo_dir = os.path.join(work, "round0", "pseudo_label", "gray_label")
-    b5_generation(torch, pth, pseudo_dir, json_path, image_dir, N_TRAIN_IMAGES)
+    cli_generation(torch, pth, pseudo_dir, json_path, image_dir, N_TRAIN_IMAGES, B5_ARGV)
 
     train_dir = os.path.join(work, "train_run")
     argv = train_argv(train_dir, pseudo_dir, json_path, image_dir, val_json, val_dir, pth,
@@ -875,21 +910,10 @@ def training_phase(torch, work: str, profile: bool) -> dict:
     times = trainer.iter_times
     run_s_per_iter = (times[-1] - times[1]) / (len(times) - 2)  # iterations 3..8
 
-    def steps(n: int) -> float:
-        """n more steps as the trainer's loop takes them (step, next batch
-        from its stream, losses to the host); returns their seconds."""
-        batch = trainer._upload(trainer.next_batch())
-        t0 = time.perf_counter()
-        for t in range(n):
-            step_losses = trainer.step_fn(batch, t % TRAIN_ITERS)  # an lr of the schedule
-            batch = trainer._upload(trainer.next_batch())
-            trainer.model_recorder.record_losses(step_losses)
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
-
     # The stream assembles batches ahead while the first (cold) iteration,
     # the validation and the saves run, and the run's later iterations draw
     # on that stock.  The steady rate is taken after 4 steps drain it.
+    steps = trainer_steps(torch, trainer)
     steps(4)
     s_per_iter = steps(8) / 8
     flops = train_step_flops(torch, trainer.segmentor)
@@ -909,9 +933,28 @@ def training_phase(torch, work: str, profile: bool) -> dict:
     torch.cuda.empty_cache()
 
     # the checkpoint drives the next round's generation
-    b5_generation(torch, ckpt, os.path.join(work, "round1", "pseudo_label", "gray_label"),
-                  json_path, image_dir, N_TRAIN_IMAGES)
+    cli_generation(torch, ckpt, os.path.join(work, "round1", "pseudo_label", "gray_label"),
+                   json_path, image_dir, N_TRAIN_IMAGES, B5_ARGV)
     return {"counts": counts, "s_per_iter": s_per_iter, "peak_gb": peak_gb, "mfu": mfu}
+
+
+def trainer_steps(torch, trainer):
+    """``steps(n)``: n more steps as the trainer's loop takes them (step,
+    next batch from its stream, losses to the host); returns their seconds.
+    Each step's lr is one of the schedule's (iterations mod the run's)."""
+    from hiast_tpu_torch.selftrain.steps import StepCount
+
+    def steps(n: int) -> float:
+        batch = trainer._upload(trainer.next_batch())
+        t0 = time.perf_counter()
+        for t in range(n):
+            step_losses = trainer.step_fn(batch, StepCount(t % TRAIN_ITERS, t % TRAIN_ITERS))
+            batch = trainer._upload(trainer.next_batch())
+            trainer.model_recorder.record_losses(step_losses)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    return steps
 
 
 def host_ms_aug(dataset) -> None:
@@ -920,6 +963,241 @@ def host_ms_aug(dataset) -> None:
     t0 = time.perf_counter()
     dataset.get_item(0, np.random.default_rng(0))
     print(f"host: one training sample (decode, pseudo-label, MS) {1e3 * (time.perf_counter() - t0):.2f} ms")
+
+
+def filter_rows(img: np.ndarray) -> np.ndarray:
+    """PNG filtering of a uint8 [H, W, C] image with row y under filter
+    type y % 5 (None, Sub, Up, Average, Paeth): the [H, 1 + W*C] raw stream."""
+    h, w, c = img.shape
+    x = img.reshape(h, w * c).astype(np.int32)
+    left = np.zeros_like(x)
+    left[:, c:] = x[:, :-c]
+    up = np.zeros_like(x)
+    up[1:] = x[:-1]
+    corner = np.zeros_like(x)
+    corner[1:, c:] = x[:-1, :-c]
+    p = left + up - corner
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - corner)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, corner))
+    preds = (np.zeros_like(x), left, up, (left + up) >> 1, paeth)
+    kinds = np.arange(h) % 5
+    raw = np.empty((h, w * c + 1), np.uint8)
+    raw[:, 0] = kinds
+    for k, pred in enumerate(preds):
+        raw[kinds == k, 1:] = ((x - pred) % 256)[kinds == k]
+    return raw
+
+
+def write_png_all_filters(path: str, img: np.ndarray) -> None:
+    """An RGB PNG through zlib whose rows use every filter type, as a
+    standard encoder's do (the port's encoder writes None and Up only)."""
+    import struct
+    import zlib
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF)
+
+    h, w, _ = img.shape
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(filter_rows(img).tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def write_hiast_round(root: str) -> tuple[str, str, str]:
+    """The consistency phase's inputs: N_TRAIN_IMAGES target images of
+    1024x2048 (the first written with every filter type), their
+    pseudo-labels (all 19 classes in 128-pixel blocks, a quarter of the
+    blocks 255), and the ``samples_with_class.json`` and
+    ``class_mean_probabilities.npy`` the generator would write for them.
+    A random-weight model's own IAS statistics name donors for almost no
+    hard class, so with them the phase would paste nothing.  Returns
+    (manifest, image dir, pseudo-label dir)."""
+    json_path, image_dir = write_image_set(root, "hiast", N_TRAIN_IMAGES, 11)
+    first = os.path.join(image_dir, "images", "hiast_0.png")
+    from hiast_tpu_torch.data.png import decode_png_file
+
+    write_png_all_filters(first, decode_png_file(first))
+    pseudo_dir = os.path.join(root, "hiast_round0", "pseudo_label", "gray_label")
+    os.makedirs(pseudo_dir)
+    rng = np.random.default_rng(12)
+    yy, xx = np.mgrid[0:VAL_H, 0:VAL_W] // (VAL_H // 8)  # 8 x 16 blocks
+    blocks = yy * (VAL_W // (VAL_H // 8)) + xx
+    samples_with_class = {c: [] for c in range(C)}
+    from hiast_tpu_torch.data.png import write_png
+
+    for i in range(N_TRAIN_IMAGES):
+        lbl = ((xx + 3 * yy + i) % C).astype(np.uint8)
+        lbl[np.isin(blocks, rng.choice(blocks.max() + 1, (blocks.max() + 1) // 4, replace=False))] = 255
+        write_png(os.path.join(pseudo_dir, f"hiast_{i}_pseudo_label.png"), lbl)
+        for c, n in zip(*np.unique(lbl[lbl != 255], return_counts=True)):
+            samples_with_class[int(c)].append([os.path.join(image_dir, "images", f"hiast_{i}.png"), int(n)])
+    check(all(samples_with_class[c] for c in range(C)), "every class has donors")
+    stats = os.path.dirname(pseudo_dir)
+    with open(os.path.join(stats, "samples_with_class.json"), "w") as f:
+        json.dump(samples_with_class, f)
+    np.save(os.path.join(stats, "class_mean_probabilities.npy"), rng.uniform(0.55, 0.98, C).astype(np.float32))
+    return json_path, image_dir, pseudo_dir
+
+
+def hiast_argv(work_dir: str, pseudo_dir: str, json_path: str, image_dir: str, val_json: str, val_dir: str,
+               total_iter: int) -> list:
+    """cli.train arguments: hiast_tpu/configs/sl_1.yaml with
+    hiast_setting.yaml as overrides (this machine reads no YAML), random
+    DeepLab-v2/R101 weights from the trainer's seed, the data and
+    iterations of this run, validation at the last."""
+    return [
+        "--device", "cuda", "--work_dir", work_dir, "--pseudo_save_dir", pseudo_dir,
+        "trainer", "ConsistencySelfTrainingTrainer",
+        "model.type", "SelfTrainingSegmentor", "model.is_freeze_bn", "True", *R101_ARGV,
+        "model.predictor.seg_loss.type", "CE", "model.predictor.seg_loss.target_pseudo_weight", "1.0",
+        "model.predictor.kld_loss.weight", "0.1", "model.predictor.ent_loss.weight", "1.0",
+        "dataset.num_classes", str(C),
+        "dataset.target.type", "Cityscapes", "dataset.target.json_path", json_path,
+        "dataset.target.image_dir", image_dir, "dataset.target.aug_type", "['MS', 'CCA']",
+        "dataset.val.type", "Cityscapes", "dataset.val.json_path", val_json, "dataset.val.image_dir", val_dir,
+        "dataset.val.resize_size", f"[{H}, {W}]",
+        "dataset.crop_size", f"[{TRAIN_H}, {TRAIN_W}]",
+        "cst_training.is_enabled", "True", "cst_training.cst_loss.type", "SoftCE",
+        "cst_training.cst_loss.weight", "0.5", "cst_training.cst_loss.region", "ignored",
+        "cst_training.ema_model.gamma", "0.999",
+        "preprocessor.type", "CopyPaste", "preprocessor.copy_paste.selected_num_classes", "14",
+        "preprocessor.copy_paste.max_donors", "3",
+        "train.batch_size", str(TRAIN_B), "train.lr", "3e-6", "train.optimizer", "Adam",
+        "train.lr_scheduler.type", "Cosine",
+        "train.total_iter", str(total_iter), "train.iter_val", str(total_iter), "train.iter_report", "1",
+        "validate.batch_size", str(B),
+    ]
+
+
+def consistency_step_flops(torch, trainer) -> float:
+    """FLOPs of one consistency step at batch 6 and 512x1024, counted as
+    ``train_step_flops`` counts them: the student's forward and backward
+    (each convolution's backward as twice its forward) and the teacher's
+    forward (FlopCounterMode over the trunks, the upsamples and the
+    losses; the strong view and the updates left out)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from hiast_tpu_torch.selftrain.steps import _total_loss
+
+    img = torch.zeros(TRAIN_B, 3, TRAIN_H, TRAIN_W, device="cuda")
+    lbl = torch.zeros(TRAIN_B, TRAIN_H, TRAIN_W, dtype=torch.long, device="cuda")
+    with FlopCounterMode(display=False) as teacher:
+        with torch.no_grad():
+            target = torch.softmax(trainer.ema_segmentor.forward(img, torch.bfloat16)["logits"], dim=1)
+    trainer.segmentor.module.train()
+    with FlopCounterMode(display=False) as student:
+        out = trainer.segmentor.forward(img, torch.bfloat16)
+        _total_loss(trainer.segmentor.compute_loss(out["logits"], lbl, t_cst_lbl=target)).backward()
+    trainer.segmentor.module.zero_grad(set_to_none=True)
+    by_op = student.get_flop_counts()["Global"]
+    conv = by_op.get(torch.ops.aten.convolution, 0)
+    conv_backward = by_op.get(torch.ops.aten.convolution_backward, 0)
+    return student.get_total_flops() - conv_backward + 2 * conv + teacher.get_total_flops()
+
+
+def consistency_phase(torch, work: str, profile: bool) -> dict:
+    """The main path's step 2 and its handoff: HIAST consistency training on
+    DeepLab-v2/R101 through cli.train (see the module docstring), then
+    generation from its ``ema_model_last.pth``; returns the generation's
+    launch counts and the training's rates."""
+    from hiast_tpu_torch.cli import train as cli_train
+    from hiast_tpu_torch.data import png
+    from hiast_tpu_torch.ops.color_aug import apply_color_aug, draw_color_aug
+    from hiast_tpu_torch.selftrain.train_state import ema_update
+    from hiast_tpu_torch.utils.checkpoint import load_train_state
+
+    t0 = time.perf_counter()
+    json_path, image_dir, pseudo_dir = write_hiast_round(work)
+    print(f"wrote {N_TRAIN_IMAGES} target images of {VAL_H}x{VAL_W}, their pseudo-labels and round "
+          f"statistics in {time.perf_counter() - t0:.2f} s")
+
+    # the native unfilter against the plain one on the all-filters file
+    with open(os.path.join(image_dir, "images", "hiast_0.png"), "rb") as f:
+        blob = f.read()
+    t0 = time.perf_counter()
+    native = png.decode_png(blob, png.unfilter_native)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    plain = png.decode_png(blob, png.unfilter_plain)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(native.shape == (VAL_H, VAL_W, 3) and np.array_equal(native, plain),
+          "the native PNG unfilter differs from the plain one on the all-filters image")
+    print(f"PNG unfilter on the all-filters {VAL_H}x{VAL_W} RGB image (rows under filters 0-4): native equal to "
+          f"plain; decode {native_ms:.2f} ms native, {plain_ms:.2f} ms plain (host clock)")
+
+    val_json, val_dir = os.path.join(work, "val.json"), os.path.join(work, "val")
+    train_dir = os.path.join(work, "hiast_run")
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer = cli_train.main(hiast_argv(train_dir, pseudo_dir, json_path, image_dir, val_json, val_dir,
+                                        TRAIN_ITERS))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(v == 0 for v in counts.values()), f"consistency training launched kernels: {counts}")
+    check(trainer.t_dataset.unfilter is png.unfilter_native, "the training data unfilter PNG rows natively")
+    losses = trainer.loss_log
+    check(len(losses) == TRAIN_ITERS and all(np.isfinite(v) for step in losses for v in step.values())
+          and sorted(losses[0]) == ["cst_loss", "ent_ignored_loss", "kld_confident_loss", "target_seg_loss"],
+          f"consistency training losses {losses}")
+    shares = trainer.paste_shares
+    check(len(shares) >= TRAIN_ITERS and min(shares) > 0, f"pasted-pixel shares of the batches {shares}")
+    ckpt_dir = os.path.join(train_dir, "checkpoints")
+    state = load_train_state(os.path.join(ckpt_dir, "model_last.pth"))
+    check(state is not None and state["step"] == TRAIN_ITERS and "ema" in state,
+          f"model_last.pth: a full state with the EMA at step {TRAIN_ITERS}")
+    ema_pth = os.path.join(ckpt_dir, "ema_model_last.pth")
+    check(os.path.exists(ema_pth), "ema_model_last.pth written")
+    times = trainer.iter_times
+    run_s_per_iter = (times[-1] - times[1]) / (len(times) - 2)
+    for i, step in enumerate(losses, 1):
+        print(f"consistency iter {i}: " + ", ".join(f"{k} {v:.5f}" for k, v in step.items())
+              + f", pasted share {shares[i - 1]:.4f}" + (f", {times[i - 1] - times[i - 2]:.3f} s" if i > 1 else ""))
+
+    steps = trainer_steps(torch, trainer)
+    steps(4)
+    s_per_iter = steps(8) / 8
+    idle = profile_run(torch, "DeepLab-v2/R101 consistency training, 3 steps", lambda: steps(3), table=profile)
+    flops = consistency_step_flops(torch, trainer)
+    mfu = flops / s_per_iter / BF16_FLOPS_PER_S
+
+    # the strong view and the EMA update on the card (CUDA events)
+    imgs = torch.from_numpy(np.random.default_rng(13).integers(0, 256, (TRAIN_B, TRAIN_H, TRAIN_W, 3),
+                                                                  dtype=np.uint8)).cuda()
+    gen = torch.Generator("cuda").manual_seed(0)
+    cca_ms = device_ms(torch, lambda: apply_color_aug(imgs, draw_color_aug(TRAIN_B, "CCA", gen), torch.bfloat16))
+    every = draw_color_aug(TRAIN_B, "CCA", gen)
+    every.gates.fill_(True)
+    cca_all_ms = device_ms(torch, lambda: apply_color_aug(imgs, every, torch.bfloat16))
+    ema_params = list(trainer.ema_module.parameters())
+    params = list(trainer.segmentor.module.parameters())
+    ema_copy = [p.clone() for p in ema_params]
+    ema_ms = device_ms(torch, lambda: ema_update(ema_copy, params, 0.999))
+    n_params = sum(p.numel() for p in params)
+    print(f"consistency training [{TRAIN_ITERS} iterations, batch {TRAIN_B}, {TRAIN_H}x{TRAIN_W}, R101]: main "
+          f"{wall:.3f} s, iterations 3-{TRAIN_ITERS} {run_s_per_iter:.4f} s/iter; steady (8 steps after 4 more) "
+          f"{s_per_iter:.4f} s/iter ({TRAIN_B / s_per_iter:.3f} images/s), peak memory {peak_gb:.3f} GB, "
+          f"{flops / 1e12:.3f} TFLOP per step (student forward + backward, teacher forward), MFU {mfu:.4f} of "
+          f"989 TFLOP/s; CCA {cca_ms:.4f} ms per batch (every transform on: {cca_all_ms:.4f} ms), EMA update "
+          f"{ema_ms:.4f} ms over {n_params} parameters (bytes bound "
+          f"{3 * 4 * n_params / HBM_BYTES_PER_S * 1e3:.4f} ms); device idle share of 3 profiled steps at "
+          f"least {idle:.3f}; pasted share {np.mean(shares):.4f}; launches {counts}; on {card_line()}")
+    t0 = time.perf_counter()
+    trainer.t_dataset.get_item(0, np.random.default_rng(0))
+    print(f"host: one consistency sample (decode of the all-filters image and its pseudo-label, a copy-paste "
+          f"donor's decode and paste, MS) {1e3 * (time.perf_counter() - t0):.2f} ms")
+    del trainer, imgs, ema_copy, ema_params, params
+    torch.cuda.empty_cache()
+
+    # the round's handoff: the next generation from the EMA teacher
+    gen_counts = cli_generation(torch, ema_pth, os.path.join(work, "hiast_round1", "pseudo_label", "gray_label"),
+                                json_path, image_dir, N_TRAIN_IMAGES, R101_ARGV)
+    check("PIL" not in sys.modules, "PIL was imported")
+    return {"counts": gen_counts, "s_per_iter": s_per_iter, "peak_gb": peak_gb, "mfu": mfu,
+            "cca_ms": cca_ms, "ema_ms": ema_ms, "idle": idle}
 
 
 def validation_run(torch, tag: str, pth: str, json_path: str, image_dir: str) -> float:
@@ -991,10 +1269,11 @@ def segformer_phase(torch, work: str, profile: bool) -> tuple[dict, float, float
     return counts, N_IMAGES / loop, N_IMAGES / val_loop
 
 
-def profile_run(torch, tag: str, run) -> None:
+def profile_run(torch, tag: str, run, table: bool = True) -> float:
     """Where one warm run's device time goes: device time by CUDA kernel
-    (torch.profiler) and the device's idle share of the batch loop.
-    ``run()`` returns the seconds of its batch loop."""
+    (torch.profiler; the table only with ``table``) and the device's idle
+    share of the batch loop, which it returns.  ``run()`` returns the
+    seconds of its batch loop."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as prof
@@ -1003,16 +1282,19 @@ def profile_run(torch, tag: str, run) -> None:
         loop = run()
     events = p.key_averages()
     print(f"profile [{tag}]")
-    print(events.table(sort_by="self_cuda_time_total", row_limit=25))
+    if table:
+        print(events.table(sort_by="self_cuda_time_total", row_limit=25))
     # a user annotation's device span (the optimizer step's) covers kernels counted on their own
     on_device = [e for e in events if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     copies = sum(e.self_device_time_total for e in on_device if e.key.startswith("Memcpy")) / 1e3
     kernels = sum(e.self_device_time_total for e in on_device) / 1e3 - copies
     # the profiler spans all of run() (for a CLI: model build, weight
     # upload); the kernels inside the loop take at most all of it
+    idle = 1 - kernels / 1e3 / loop
     print(f"profile [{tag}]: over the run, device kernels {kernels:.3f} ms and copies {copies:.3f} ms; "
-          f"loop {loop * 1e3:.3f} ms, so the device idles at least "
-          f"{1 - kernels / 1e3 / loop:.3f} of the loop (the profiler slows the host)")
+          f"loop {loop * 1e3:.3f} ms, so the device idles at least {idle:.3f} of the loop "
+          "(the profiler slows the host)")
+    return idle
 
 
 def forward_flops(torch, seg_model: str) -> float:
@@ -1053,10 +1335,10 @@ def print_flops(total: float, what: str) -> None:
 def host_costs(image_path: str) -> None:
     """Host clock: decode one input PNG, encode one label PNG."""
     from hiast_tpu_torch.data.datasets import read_rgb
-    from hiast_tpu_torch.data.png import encode_png
+    from hiast_tpu_torch.data.png import encode_png, unfilter_native
 
     t0 = time.perf_counter()
-    img = read_rgb(image_path)
+    img = read_rgb(image_path, unfilter_native)  # as the CLIs read on the card
     decode = time.perf_counter() - t0
     lbl = np.zeros(img.shape[:2], np.uint8)
     lbl[:, img.shape[1] // 2:] = 7
@@ -1116,6 +1398,14 @@ def main(argv: list[str]) -> int:
           f"{TRAIN_H}x{TRAIN_W}, SegFormer-B5, on {card})")
     for name in ("sra_attention", "sra_attention_bwd"):  # the training path runs both
         counts[name] = train["counts"][name]
+    hiast = consistency_phase(torch, work, profile)
+    print(f"consistency training warm: {hiast['s_per_iter']:.4f} s/iter, {TRAIN_B / hiast['s_per_iter']:.3f} "
+          f"images/s, peak memory {hiast['peak_gb']:.3f} GB, MFU {hiast['mfu']:.4f}, CCA {hiast['cca_ms']:.4f} ms "
+          f"per batch, EMA update {hiast['ema_ms']:.4f} ms, device idle at least {hiast['idle']:.3f} "
+          f"(batch {TRAIN_B}, {TRAIN_H}x{TRAIN_W}, "
+          f"DeepLab-v2/R101, on {card})")
+    for name in ("ias_hist", "ias_select"):  # the main path: generation from the round's EMA teacher
+        counts[name] = hiast["counts"][name]
 
     rows = []
     sources = {

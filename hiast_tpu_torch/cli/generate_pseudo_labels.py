@@ -18,6 +18,7 @@ import torch
 
 from hiast_tpu_torch.cli.common import build_cfg, resolve_device, standard_parser
 from hiast_tpu_torch.data.datasets import build_dataset
+from hiast_tpu_torch.data.png import unfilter_for
 from hiast_tpu_torch.data.pipeline import BatchIterator, prefetched
 from hiast_tpu_torch.models.segmentors import build_segmentor
 from hiast_tpu_torch.ops.resize import bilinear_resize
@@ -71,7 +72,7 @@ def main(argv=None):
     segmentor.module.to(device).eval()
 
     h, w = cfg.pseudo_policy.resize_size
-    dataset = build_dataset(cfg, "target", aug_type=[f"PRS-{h}-{w}"])
+    dataset = build_dataset(cfg, "target", aug_type=[f"PRS-{h}-{w}"], unfilter=unfilter_for(device.type))
 
     def data_iter_factory():
         # shuffle=True matches the reference IAS pass (online thresholds see

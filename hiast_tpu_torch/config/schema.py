@@ -220,8 +220,11 @@ def default_config() -> ConfigNode:
             },
             # ==============================================================
             # TPU runtime (new; replaces gpu_num/port/apex_opt).  The port
-            # reads none of this section yet: its device comes from the
-            # CLI's --device flag and its precision is bf16 autocast.
+            # takes its device from the CLI's --device flag and reads
+            # checkpoint.keep, precision.compute_dtype (the autocast dtype)
+            # and skip_nonfinite_updates; remat raises (ROADMAP.md item A8)
+            # and fused_attention is checked for its shape; the rest is the
+            # JAX package's only.
             # ==============================================================
             "runtime": {
                 "mesh": {

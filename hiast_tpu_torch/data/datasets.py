@@ -1,16 +1,20 @@
 """Host-side datasets: manifest-driven decode + remap + geometric aug.
 
 The part of ``hiast_tpu/data/datasets.py`` that pseudo-label generation,
-validation and plain self-training use: the Cityscapes target set with the
-deterministic 'PRS-h-w' resize or the 'MS' / 'OMS' train augs, read with the
-previous round's pseudo-labels (``pseudo_dir``) for training, and the val
-split at its native size with its labels (no augs).  With a ``pseudo_dir``
-the dataset also loads that round's ``samples_with_class.json`` (the donor
-lists copy-paste will draw from).
+validation, plain and consistency self-training use: the Cityscapes target
+set with the deterministic 'PRS-h-w' resize or the 'MS' / 'OMS' train augs,
+read with the previous round's pseudo-labels (``pseudo_dir``) for
+training, and the val split at its native size with its labels (no augs).
+With a ``pseudo_dir`` the dataset also loads that round's
+``samples_with_class.json`` (the donor lists copy-paste draws from), and a
+preprocessor (``set_preprocessor``, HPA's ``CopyPaste``) runs on each
+sample before the geometric augs.  A device colour aug in ``aug_type``
+('CCA', 'SCA') is left to the train step.
 Samples leave the host as uint8 [H, W, 3] images and uint8 [H, W] labels,
 batched by ``data/pipeline.py`` exactly as in the JAX package.  PNGs decode
-through the port's numpy codec (``data/png.py``); PIL is imported only for
-files that codec does not read.
+through the port's codec (``data/png.py``) with the row unfilter the caller
+names for its device (``unfilter``); PIL is imported only for files that
+are not PNGs.
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ from typing import Callable
 import numpy as np
 
 from hiast_tpu_torch.data import augment as A
-from hiast_tpu_torch.data.png import decode_png_file
+from hiast_tpu_torch.data.png import Unfilter, decode_png_file, unfilter_plain
 from hiast_tpu_torch.data.remap import remap_label
 from hiast_tpu_torch.registry import DATASET
 
@@ -35,23 +39,27 @@ def _pil_read(path: str, mode: str | None) -> np.ndarray:
     return np.asarray(img.convert(mode) if mode else img, np.uint8)
 
 
-def read_rgb(path: str) -> np.ndarray:
-    arr = decode_png_file(path)
-    if arr is not None:
-        if arr.ndim == 3 and arr.shape[2] == 3:
-            return arr
-        if arr.ndim == 3 and arr.shape[2] == 4:
-            return np.ascontiguousarray(arr[..., :3])
-        if arr.ndim == 2:
-            return np.repeat(arr[..., None], 3, axis=2)
-    return _pil_read(path, "RGB")
+def read_rgb(path: str, unfilter: Unfilter = unfilter_plain) -> np.ndarray:
+    """uint8 [H, W, 3]: gray repeated, alpha dropped, 16 bits cut to their
+    high byte."""
+    arr = decode_png_file(path, unfilter)
+    if arr is None:
+        return _pil_read(path, "RGB")
+    if arr.dtype == np.uint16:
+        arr = (arr >> 8).astype(np.uint8)
+    if arr.ndim == 2 or arr.shape[2] == 2:
+        return np.repeat(arr.reshape(arr.shape[0], arr.shape[1], -1)[..., :1], 3, axis=2)
+    return np.ascontiguousarray(arr[..., :3])
 
 
-def read_gray(path: str) -> np.ndarray:
-    arr = decode_png_file(path)
-    if arr is not None and arr.ndim == 2:
-        return arr
-    return _pil_read(path, None)
+def read_gray(path: str, unfilter: Unfilter = unfilter_plain) -> np.ndarray:
+    """A label map as PIL's ``np.asarray(Image.open(path), np.uint8)`` gives
+    it (the JAX package's reader): a palette image's indices, 16-bit values
+    cast to uint8."""
+    arr = decode_png_file(path, unfilter, palette=False)
+    if arr is None:
+        return _pil_read(path, None)
+    return arr.astype(np.uint8, copy=False)
 
 
 def get_path_list(json_path: str, image_dir: str):
@@ -73,15 +81,15 @@ class BaseDataset:
         pseudo_dir: str | None = None,
         aug_type=(),
         num_classes: int = 19,
+        *,
+        unfilter: Unfilter,
     ):
         self.cfg = cfg
         self.pseudo_dir = pseudo_dir
         self.num_classes = num_classes
-        host_augs, color_aug = A.split_aug_types(list(aug_type))
-        if color_aug is not None:
-            raise NotImplementedError(
-                f"device color aug {color_aug!r} is ROADMAP.md item A5: not ported yet"
-            )
+        self.unfilter = unfilter
+        self.preprocessor = None
+        host_augs, _ = A.split_aug_types(list(aug_type))  # a colour aug is the train step's
         self.aug_fns = [self.build_aug_fn(a) for a in host_augs]
         self.aug_fns = [a for a in self.aug_fns if a is not None]
         self.img_paths, self.lbl_paths = get_path_list(json_path, image_dir)
@@ -113,6 +121,9 @@ class BaseDataset:
     def __len__(self):
         return len(self.img_paths)
 
+    def set_preprocessor(self, preprocessor):
+        self.preprocessor = preprocessor
+
     def get_samples_with_class(self):
         return self.samples_with_class
 
@@ -124,10 +135,10 @@ class BaseDataset:
         ``pseudo_dir`` the label is ``<pseudo_dir>/<name>_pseudo_label.png``,
         resized (nearest) to the image when the sizes differ."""
         img_path = self.img_paths[index]
-        img = read_rgb(img_path)
+        img = read_rgb(img_path, self.unfilter)
         if self.pseudo_dir is not None:
             name = os.path.splitext(os.path.basename(img_path))[0]
-            lbl = read_gray(os.path.join(self.pseudo_dir, f"{name}_pseudo_label.png"))
+            lbl = read_gray(os.path.join(self.pseudo_dir, f"{name}_pseudo_label.png"), self.unfilter)
         else:
             lbl = self.read_label(self.lbl_paths[index])
         if lbl is None:
@@ -137,7 +148,12 @@ class BaseDataset:
         return img, lbl, img_path
 
     def get_item(self, index: int, rng: np.random.Generator) -> dict:
-        """One sample: load + host geometric augs.
+        """One sample: load, the preprocessor (copy-paste) when one is set,
+        then the host geometric augs, all drawing from ``rng`` in the JAX
+        package's order.  With a preprocessor the sample also carries its
+        ``copy_paste_mask`` (the pasted donor labels, 255 elsewhere), on the
+        image's grid before the augs, as the JAX package ships it unless the
+        directional-consistency loss (ROADMAP.md item A10) is on.
 
         An unreadable file is reported and the neighbouring index is loaded
         instead, as the JAX package does (reference base_dataset.py:81-86)."""
@@ -147,13 +163,15 @@ class BaseDataset:
             print(f"## {e!r} loading index {index}: {self.img_paths[index]}")
             index = index - 1 if index > 0 else index + 1
             return self.get_item(index, rng)
+        result = {}
+        if self.preprocessor is not None:
+            img, lbl, result["copy_paste_mask"] = self.preprocessor.run(img, lbl, rng)
         for fn in self.aug_fns:
             img, lbl = fn(img, lbl, rng)
-        return {
-            "images": np.ascontiguousarray(img),
-            "labels": np.ascontiguousarray(lbl),
-            "image_paths": img_path,
-        }
+        result["images"] = np.ascontiguousarray(img)
+        result["labels"] = np.ascontiguousarray(lbl)
+        result["image_paths"] = img_path
+        return result
 
 
 @DATASET.register("Cityscapes")
@@ -161,7 +179,7 @@ class CityscapesDataset(BaseDataset):
     def read_label(self, path):
         if self.num_classes not in (9, 19):
             raise ValueError(f"Cityscapes has 19 or 9 classes, not {self.num_classes}")
-        lbl = read_gray(path)
+        lbl = read_gray(path, self.unfilter)
         if self.num_classes == 9:  # Cityscapes -> Oxford scenario
             lbl = remap_label(lbl, "Cityscapes9")
         return lbl
@@ -177,12 +195,14 @@ class CityscapesDataset(BaseDataset):
         if aug_type.startswith("PRS"):
             return A.Resize(*A.parse_resize_params(aug_type))
         raise NotImplementedError(
-            f"aug_type {aug_type!r} is ROADMAP.md item A5 (DACS, FDA): not ported yet"
+            f"aug_type {aug_type!r} is ROADMAP.md item A14 (DACS, FDA, with the source datasets): "
+            "not ported yet"
         )
 
 
-def build_dataset(cfg, section, pseudo_dir=None, aug_type=None, num_classes=None):
-    """Instantiate the dataset named by a cfg.dataset.<section> block."""
+def build_dataset(cfg, section, pseudo_dir=None, aug_type=None, num_classes=None, *, unfilter: Unfilter):
+    """Instantiate the dataset named by a cfg.dataset.<section> block; its
+    PNGs unfilter with ``unfilter`` (``png.unfilter_for`` the run's device)."""
     node = getattr(cfg.dataset, section)
     return DATASET[node.type](
         cfg,
@@ -191,4 +211,5 @@ def build_dataset(cfg, section, pseudo_dir=None, aug_type=None, num_classes=None
         pseudo_dir=pseudo_dir,
         aug_type=aug_type if aug_type is not None else list(getattr(node, "aug_type", [])),
         num_classes=num_classes or cfg.dataset.num_classes,
+        unfilter=unfilter,
     )

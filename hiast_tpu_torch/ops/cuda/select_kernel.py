@@ -148,12 +148,14 @@ def ias_select_plain(
     labels = torch.where(selected, pred, torch.full_like(pred, IGNORE)).to(torch.uint8)
     sample = torch.arange(b, device=logits.device).view(b, 1, 1).expand_as(pred)
     counts = torch.bincount((sample * c + pred)[selected], minlength=b * c)
-    sums = torch.zeros(c, dtype=torch.float32, device=logits.device)
-    sums.index_add_(0, pred[selected], maxprob[selected])
+    # summed in float64: a float32 sum over ~1e6 confidences a class drifts
+    # by ~1e-3 relative, and these sums set HPA's hard classes next round
+    sums = torch.zeros(c, dtype=torch.float64, device=logits.device)
+    sums.index_add_(0, pred[selected], maxprob[selected].double())
     return (
         labels,
         counts.reshape(b, c).to(torch.int32),
-        sums,
+        sums.float(),
         maxprob if with_maxprob else None,
     )
 

@@ -2,9 +2,9 @@
 
 The port of ``hiast_tpu/ops/losses.py`` (reference:
 code/sseg/models/modules/losses.py:9-89 and the region regularisers of
-code/sseg/models/segmentors/self_training_segmentor.py:128-163) for the
-losses plain self-training uses: hard-label CE, KLD-to-uniform and entropy.
-SoftCE, KLDIV, MSE and BCE come with the consistency slice.
+code/sseg/models/segmentors/self_training_segmentor.py:128-163): the
+registered losses CE, SoftCE, KLDIV, MSE and BCEWithLogits, and the
+region regularisers KLD-to-uniform and entropy.
 
 Logits are NCHW [B, C, H, W], the port's layout (the JAX functions take
 NHWC); labels and region masks are [B, H, W].  Region protocol: a loss can
@@ -82,6 +82,71 @@ def cross_entropy(
             denom = torch.where(valid, w, torch.zeros_like(w)).sum().clamp(min=1e-12)
         return nll.sum() / denom
     return _masked_nonzero_mean(nll, region_mask(refer_labels, region, ignore_index))
+
+
+@LOSS.register("SoftCE")
+def soft_cross_entropy(
+    logits: torch.Tensor,
+    target_probs: torch.Tensor,
+    weights=None,
+    ignore_index: int = IGNORE_INDEX,
+    refer_labels: torch.Tensor | None = None,
+    region: str = "confident",
+) -> torch.Tensor:
+    """Soft-label CE, -sum(target * log_softmax(logits)), per class and
+    pixel; ``target_probs`` is an NCHW probability map (the EMA teacher's
+    softmax).  Mean over every entry, or the region's nonzero-mean
+    (reference losses.py:39-66)."""
+    nll = -_log_softmax(logits)
+    t = target_probs.to(nll.dtype)
+    if weights is not None:
+        t = t * torch.as_tensor(weights, dtype=nll.dtype, device=nll.device).view(1, -1, 1, 1)
+    per_elem = nll * t
+    if refer_labels is None:
+        return per_elem.sum() / per_elem.numel()
+    return _masked_nonzero_mean(per_elem, region_mask(refer_labels, region, ignore_index))
+
+
+@LOSS.register("KLDIV")
+def kl_divergence(
+    input_logits: torch.Tensor,
+    target_logits: torch.Tensor,
+    weights=None,
+    ignore_index: int = IGNORE_INDEX,
+    refer_labels: torch.Tensor | None = None,
+    region: str = "confident",
+) -> torch.Tensor:
+    """KL(softmax(target) || softmax(input)) per entry, torch KLDivLoss's
+    'mean' over every entry, or the region's nonzero-mean (reference
+    losses.py:16-23)."""
+    logp = _log_softmax(input_logits)
+    q = F.softmax(target_logits.float(), dim=1)
+    per_elem = q * (torch.log(q.clamp(min=1e-30)) - logp)
+    if refer_labels is None:
+        return per_elem.mean()
+    return _masked_nonzero_mean(per_elem, region_mask(refer_labels, region, ignore_index))
+
+
+@LOSS.register("MSE")
+def mse(
+    logits: torch.Tensor,
+    labels: torch.Tensor,
+    weights=None,
+    ignore_index: int = IGNORE_INDEX,
+    refer_labels: torch.Tensor | None = None,
+    region: str = "all",
+) -> torch.Tensor:
+    per_elem = (logits.float() - labels.float()) ** 2
+    if refer_labels is None:
+        return per_elem.mean()
+    return _masked_nonzero_mean(per_elem, region_mask(refer_labels, region, ignore_index))
+
+
+@LOSS.register("BCEWithLogits")
+def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor, **_) -> torch.Tensor:
+    """Binary CE on logits in the stable form max(x, 0) - x y + log1p(exp(-|x|))."""
+    x, y = logits.float(), labels.float()
+    return (torch.clamp(x, min=0) - x * y + torch.log1p(torch.exp(-x.abs()))).mean()
 
 
 def kld_to_uniform(logits: torch.Tensor, pixel_weight: torch.Tensor) -> torch.Tensor:

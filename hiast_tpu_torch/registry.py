@@ -44,6 +44,7 @@ class Registry(dict):
 DATASET = Registry("dataset")
 LOSS = Registry("loss")
 MODEL = Registry("model")
+PREPROCESSOR = Registry("preprocessor")
 PSEUDO_POLICY = Registry("pseudo_policy")
 SEG_MODEL = Registry("seg_model")
 TRAINER = Registry("trainer")
@@ -58,6 +59,7 @@ def populate() -> None:
         "hiast_tpu_torch.models.segformer",
         "hiast_tpu_torch.models.segmentors",
         "hiast_tpu_torch.data.datasets",
+        "hiast_tpu_torch.data.copy_paste",
         "hiast_tpu_torch.pseudo.generator",
         "hiast_tpu_torch.ops.losses",
         "hiast_tpu_torch.selftrain.trainers",

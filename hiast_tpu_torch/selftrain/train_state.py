@@ -17,7 +17,8 @@ code/utils/utils.py:135-163, code/sseg/models/modules/schedulers.py:7-14) on
   ``optax.scale_by_schedule`` evaluates it) is ``lr_schedule(cfg)(t)``
   times the group's multiplier, set by ``set_lr`` before each update.
 
-bf16 autocast needs no loss scaling, so there is no GradScaler.
+bf16 autocast needs no loss scaling, so there is no GradScaler.  The EMA
+teacher's update is ``ema_update``.
 """
 from __future__ import annotations
 
@@ -88,6 +89,15 @@ def make_optimizer(cfg, module: nn.Module) -> torch.optim.Optimizer:
     if kind == "SGD":
         return torch.optim.SGD(param_groups, momentum=0.9, weight_decay=wd)
     raise ValueError(f"{kind!r} is not a valid optimizer")
+
+
+@torch.no_grad()
+def ema_update(ema_params: list[torch.Tensor], params: list[torch.Tensor], gamma: float) -> None:
+    """Move every EMA parameter toward its student parameter in place,
+    ema <- gamma * ema + (1 - gamma) * p (reference code/utils/utils.py:115-123;
+    JAX ``train_state.ema_update``), one multi-tensor lerp.  Parameters
+    only: the teacher's buffers are the student's, copied in before use."""
+    torch._foreach_lerp_(ema_params, params, 1.0 - gamma)
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:

@@ -3,8 +3,11 @@
 The port of ``hiast_tpu/selftrain/trainers.py`` (reference:
 code/workflows/trainer/*.py): ``BaseTrainer`` assembles model, optimizer,
 data streams, recorder and checkpoint policy; ``SelfTrainingTrainer`` trains
-on the previous round's pseudo-labels.  One device, one process; the
-consistency, mutual-learning and warmup trainers come with their slices.
+on the previous round's pseudo-labels; ``ConsistencySelfTrainingTrainer``
+is the HIAST trainer (EMA teacher, strong view on the card, hard-aware
+copy-paste).  One device, one process; the mutual-learning and warmup
+trainers come with their slices.  Gating the side-effect writers on rank 0
+comes with multi-GPU training (ROADMAP.md item A11).
 
 The loop keeps the JAX trainer's one-batch-deep pipeline: it enqueues step
 k on the card, then assembles and uploads batch k+1 (from pinned memory, so
@@ -13,6 +16,7 @@ step k's losses.
 """
 from __future__ import annotations
 
+import copy
 import json
 import os
 import signal
@@ -21,14 +25,21 @@ import time
 import numpy as np
 import torch
 
+from hiast_tpu_torch.data.augment import split_aug_types
 from hiast_tpu_torch.data.datasets import build_dataset
 from hiast_tpu_torch.data.pipeline import BatchIterator, infinite_batches, prefetched
+from hiast_tpu_torch.data.png import unfilter_for
 from hiast_tpu_torch.evaluation import make_val_step, run_validation
 from hiast_tpu_torch.models.segmentors import build_segmentor
-from hiast_tpu_torch.registry import TRAINER
+from hiast_tpu_torch.registry import PREPROCESSOR, TRAINER
 from hiast_tpu_torch.selftrain import steps as S
 from hiast_tpu_torch.selftrain.train_state import lr_schedule, make_optimizer
-from hiast_tpu_torch.utils.checkpoint import CheckpointPolicy, load_train_state, load_weights
+from hiast_tpu_torch.utils.checkpoint import (
+    CheckpointPolicy,
+    load_train_state,
+    load_weights,
+    save_train_state,
+)
 from hiast_tpu_torch.utils.logging_utils import init_logger, init_writer
 from hiast_tpu_torch.utils.recorder import ResultRecorder
 
@@ -43,6 +54,7 @@ class BaseTrainer:
     def __init__(self, cfg, device: torch.device | str = "cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
+        self.unfilter = unfilter_for(self.device.type)  # PNG rows: native beside a card
         self.assert_cfg()
         self.initialize()
         self.build_all_model()
@@ -101,15 +113,25 @@ class BaseTrainer:
             self.logger.info(f"resumed weights from {resume}")
         module.to(self.device)
         self.optimizer = make_optimizer(cfg, module)
-        self.step = 0  # updates done
+        self.count = S.StepCount()
         if full is not None:
             module.load_state_dict(full["state_dict"])
             self.optimizer.load_state_dict(full["optimizer"])
-            self.step = int(full["step"])
+            self.count = S.StepCount(int(full["step"]), int(full.get("lr_schedule_step", full["step"])))
             self.logger.info(f"resumed the full train state from {resume} at step {self.step}")
+        self.build_extra_state(full)
         self.lr_fn = lr_schedule(cfg)
         self.model_recorder = ResultRecorder(cfg, "model", self.logger, self.writer, self.lr_fn)
         self.step_fn = self.make_step()
+
+    @property
+    def step(self) -> int:
+        """Steps taken."""
+        return self.count.iterations
+
+    def build_extra_state(self, full: dict | None) -> None:
+        """Hook: state beyond the student and its optimizer, built after the
+        student's weights are final (``full``: the resumed state, or None)."""
 
     def _workers(self):
         n = self.cfg.dataset.num_workers
@@ -118,7 +140,7 @@ class BaseTrainer:
     def build_train_data_reader(self):
         cfg = self.cfg
         if self.needs_target:
-            ds = build_dataset(cfg, "target", pseudo_dir=cfg.dataset.target.pseudo_dir)
+            ds = build_dataset(cfg, "target", pseudo_dir=cfg.dataset.target.pseudo_dir, unfilter=self.unfilter)
             self.t_dataset = ds
             self.t_stream = infinite_batches(
                 ds, cfg.train.batch_size, seed=cfg.train.random_seed + 1, num_workers=self._workers()
@@ -126,7 +148,9 @@ class BaseTrainer:
 
     def build_val_data_reader(self):
         cfg = self.cfg
-        self.v_dataset = build_dataset(cfg, "val", aug_type=[]) if cfg.dataset.val.type else None
+        self.v_dataset = (
+            build_dataset(cfg, "val", aug_type=[], unfilter=self.unfilter) if cfg.dataset.val.type else None
+        )
         self.val_step = None
         if self.v_dataset is not None and cfg.dataset.val.resize_size:
             self.val_step = make_val_step(
@@ -175,8 +199,7 @@ class BaseTrainer:
             start = self.step + 1
             batch = self._upload(self.next_batch()) if start <= cfg.train.total_iter else None
             for it in range(start, cfg.train.total_iter + 1):
-                losses = self.step_fn(batch, it - 1)  # lr at the count of updates done
-                self.step = it
+                losses = self.step_fn(batch, self.count)  # advances the count to it
                 if it < cfg.train.total_iter:
                     batch = self._upload(self.next_batch())
                 self.loss_log.append(self.model_recorder.record_losses(losses))
@@ -201,14 +224,18 @@ class BaseTrainer:
             self._restore_preemption_handler()
         self.model_recorder.report_end_info()
 
-    def validate(self, iteration: int):
-        module = self.segmentor.module
+    def _run_validation(self, val_step, module) -> tuple:
+        """(iou, miou) of ``val_step`` over the val set, ``module`` in eval mode."""
+        was_training = module.training
         module.eval()
         try:
             val_iter = BatchIterator(self.v_dataset, self.cfg.validate.batch_size, shuffle=False, drop_last=False)
-            iou, miou = run_validation(self.val_step, prefetched(iter(val_iter), depth=2), self.device)
+            return run_validation(val_step, prefetched(iter(val_iter), depth=2), self.device)
         finally:
-            module.train()
+            module.train(was_training)
+
+    def validate(self, iteration: int):
+        iou, miou = self._run_validation(self.val_step, self.segmentor.module)
         is_best = self.model_recorder.record_and_report_metrics(miou, iou, iteration)
         self.save_checkpoint(iteration, is_best)
 
@@ -216,8 +243,8 @@ class BaseTrainer:
         return {
             "state_dict": self.segmentor.module.state_dict(),
             "optimizer": self.optimizer.state_dict(),
-            "step": self.step,
-            "lr_schedule_step": self.step,  # the schedule is evaluated at the update count
+            "step": self.count.iterations,
+            "lr_schedule_step": self.count.updates,  # the schedule is evaluated at the update count
         }
 
     _last_ckpt_iter = 0
@@ -243,3 +270,122 @@ class SelfTrainingTrainer(BaseTrainer):
     def next_batch(self):
         b = next(self.t_stream)
         return {"t_img": b["images"], "t_plbl": b["labels"]}  # uint8; cast on the device
+
+
+@TRAINER.register("ConsistencySelfTrainingTrainer")
+class ConsistencySelfTrainingTrainer(SelfTrainingTrainer):
+    """The HIAST trainer (reference consistency_self_training_trainer.py; JAX
+    ``trainers.py:396-514``): an EMA teacher, the strong view made on the
+    card ('CCA' or 'SCA' from ``dataset.target.aug_type``), and hard-aware
+    copy-paste over the previous round's statistics.
+
+    The teacher is a second module, a copy of the student once the
+    student's weights are loaded (``pretrained``, ``init_from``, a
+    weights-only resume), and a full-state resume restores its parameters.
+    Every save writes ``ema_model_last.pth`` beside the student's
+    checkpoints (the final and preemption saves included): the teacher's
+    parameters with the student's buffers, in the reference ``.pth``
+    layout, which the generation CLI reads with ``--pseudo_resume_from``."""
+
+    def assert_cfg(self):
+        super().assert_cfg()
+        cfg = self.cfg
+        if not cfg.cst_training.is_enabled:
+            raise ValueError("ConsistencySelfTrainingTrainer needs cst_training.is_enabled True")
+        # a falsy type is plain consistency self-training (no copy-paste), as in the JAX package
+        if cfg.preprocessor.type and cfg.preprocessor.type not in PREPROCESSOR:
+            raise KeyError(f"unknown preprocessor.type {cfg.preprocessor.type!r} (known: {sorted(PREPROCESSOR)})")
+
+    def build_extra_state(self, full):
+        self.ema_module = copy.deepcopy(self.segmentor.module).requires_grad_(False).eval()
+        self.ema_segmentor = self.segmentor.with_module(self.ema_module)
+        if full is not None and "ema" in full:
+            ema_params = dict(self.ema_module.named_parameters())
+            if sorted(full["ema"]) != sorted(ema_params):
+                raise ValueError(f"{self.cfg.train.resume_from}: its EMA parameters do not match the model")
+            with torch.no_grad():
+                for name, p in ema_params.items():
+                    p.copy_(full["ema"][name])
+            self.logger.info(f"resumed the EMA teacher from {self.cfg.train.resume_from}")
+
+    def build_all_model(self):
+        super().build_all_model()
+        self.ema_recorder = ResultRecorder(self.cfg, "ema_model", self.logger, self.writer, self.lr_fn)
+
+    def build_train_data_reader(self):
+        cfg = self.cfg
+        pseudo_dir = cfg.dataset.target.pseudo_dir
+        ds = build_dataset(cfg, "target", pseudo_dir=pseudo_dir, unfilter=self.unfilter)
+        kind = cfg.preprocessor.type
+        if kind == "CopyPaste" and not ds.get_samples_with_class():
+            # the reference fails here too (base_dataset.py:61-77, consistency trainer :27-44)
+            raise FileNotFoundError(
+                "preprocessor.type CopyPaste needs the samples_with_class stats: expected "
+                f"samples_with_class.json next to pseudo_dir={pseudo_dir!r} (written by the "
+                "pseudo-label generation round); point dataset.target.pseudo_dir at a generated "
+                "round, or set preprocessor.type to None for plain consistency self-training"
+            )
+        cmp_path = os.path.join(os.path.dirname(os.path.normpath(pseudo_dir)), "class_mean_probabilities.npy")
+        if os.path.exists(cmp_path):
+            class_value = np.load(cmp_path)
+        else:
+            if kind == "CopyPaste":
+                self.logger.warning(
+                    f"class_mean_probabilities.npy not found next to pseudo_dir={pseudo_dir!r}: HPA's "
+                    "hard-class weighting falls back to uniform (class_value 0.9); the reference "
+                    "requires this file (consistency trainer :29-30)"
+                )
+            class_value = np.full(cfg.dataset.num_classes, 0.9, np.float32)
+        if kind:
+            ds.set_preprocessor(PREPROCESSOR[kind](cfg, ds, class_value))
+        self.t_dataset = ds
+        self.paste_shares: list[float] = []  # share of pasted pixels per batch
+        self.t_stream = infinite_batches(
+            ds, cfg.train.batch_size, seed=cfg.train.random_seed + 1, num_workers=self._workers()
+        )
+
+    def next_batch(self):
+        b = next(self.t_stream)
+        if "copy_paste_mask" in b:
+            self.paste_shares.append(np.count_nonzero(b["copy_paste_mask"] != 255) / b["copy_paste_mask"].size)
+        return {"t_img": b["images"], "t_plbl": b["labels"]}  # uint8; cast on the device
+
+    def make_step(self):
+        _, strong = split_aug_types(list(self.cfg.dataset.target.aug_type))
+        generator = torch.Generator(self.device).manual_seed(self.cfg.train.random_seed)
+        return S.make_consistency_step(
+            self.segmentor, self.ema_module, self.optimizer, self.lr_fn, self.dtype,
+            strong_aug=strong, generator=generator,
+        )
+
+    def sync_ema_buffers(self) -> None:
+        """The student's BatchNorm buffers into the teacher."""
+        torch._foreach_copy_(list(self.ema_module.buffers()), list(self.segmentor.module.buffers()))
+
+    def build_val_data_reader(self):
+        super().build_val_data_reader()
+        self.ema_val_step = None
+        if self.val_step is not None:
+            self.ema_val_step = make_val_step(
+                self.ema_segmentor, self.cfg.dataset.val.resize_size, self.cfg.dataset.num_classes, self.dtype
+            )
+
+    def validate(self, iteration: int):
+        super().validate(iteration)  # the student, and the checkpoints
+        self.sync_ema_buffers()
+        iou, miou = self._run_validation(self.ema_val_step, self.ema_module)
+        self.ema_recorder.record_and_report_metrics(miou, iou, iteration)
+
+    def checkpoint_state(self) -> dict:
+        state = super().checkpoint_state()
+        state["ema"] = {name: p.detach() for name, p in self.ema_module.named_parameters()}
+        return state
+
+    def save_checkpoint(self, iteration: int, is_best: bool):
+        super().save_checkpoint(iteration, is_best)
+        self.sync_ema_buffers()
+        save_train_state(self.ckpt.path("ema_model_last"), self.ema_module.state_dict())
+
+    def run(self):
+        super().run()
+        self.ema_recorder.report_end_info()

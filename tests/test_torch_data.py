@@ -1,8 +1,9 @@
 """The port's host data path: PNG codec, PRS resize, dataset and batching.
 
 - ``data/png.py`` round-trips gray/RGB/RGBA exactly, reads what PIL writes
-  (or declines, for PIL to read), and its label encoder writes the bytes of
-  the JAX package's layout (first row None, then Up, zlib level 1).
+  (declining only what is not a PNG, for PIL to read), and its label
+  encoder writes the bytes of the JAX package's layout (first row None,
+  then Up, zlib level 1).
 - ``Resize`` matches cv2: labels exactly (INTER_NEAREST), images within one
   intensity level (INTER_LINEAR; cv2 rounds its weights to 11 bits).
 - The Cityscapes dataset and ``BatchIterator`` give the JAX package's images
@@ -52,9 +53,7 @@ def test_reads_what_pil_writes(tmp_path, mode):
     arr = RNG.integers(0, 256, size=shape).astype(np.uint8)
     path = str(tmp_path / f"x_{mode}.png")
     Image.fromarray(arr, mode=mode).save(path)
-    decoded = png.decode_png_file(path)
-    if decoded is not None:  # None: Average/Paeth rows, PIL reads those
-        np.testing.assert_array_equal(decoded, arr)
+    np.testing.assert_array_equal(png.decode_png_file(path), arr)
     if mode == "L":
         np.testing.assert_array_equal(read_gray(path), arr)
     else:
@@ -62,10 +61,15 @@ def test_reads_what_pil_writes(tmp_path, mode):
 
 
 def test_declines_what_it_does_not_read(tmp_path):
+    """Bytes that are not a PNG, and a file that is not a .png, are left to
+    PIL (None); a 16-bit PNG, which the codec once declined, now reads as
+    uint16 (tests/test_torch_png.py covers every format)."""
     sixteen = RNG.integers(0, 65535, size=(8, 8)).astype(np.uint16)
     buf = io.BytesIO()
     Image.fromarray(sixteen).save(buf, format="PNG")
-    assert png.decode_png(buf.getvalue()) is None
+    decoded = png.decode_png(buf.getvalue())
+    assert decoded.dtype == np.uint16
+    np.testing.assert_array_equal(decoded, sixteen)
     assert png.decode_png(b"not a png") is None
     assert png.decode_png_file(str(tmp_path / "x.jpg")) is None
 
@@ -120,7 +124,8 @@ def test_dataset_and_batches_match_jax(tmp_path):
         cfg.dataset.target.image_dir = str(tmp_path)
         return cfg
 
-    ours = build_dataset(configure(default_config()), "target", aug_type=["PRS-32-48"])
+    ours = build_dataset(configure(default_config()), "target", aug_type=["PRS-32-48"],
+                         unfilter=png.unfilter_plain)
     theirs = jax_build_dataset(configure(jax_default_config()), "target", aug_type=["PRS-32-48"])
     got = list(BatchIterator(ours, 2, shuffle=True, seed=888, drop_last=False))
     want = list(JaxBatchIterator(theirs, 2, shuffle=True, seed=888, drop_last=False))
@@ -159,7 +164,7 @@ def _cityscapes_pair(tmp_path, n, shape=(32, 48)):
         return cfg
 
     return (
-        lambda: build_dataset(configure(default_config()), "val", aug_type=[]),
+        lambda: build_dataset(configure(default_config()), "val", aug_type=[], unfilter=png.unfilter_plain),
         lambda: jax_build_dataset(configure(jax_default_config()), "val", aug_type=[]),
     )
 

@@ -5,7 +5,10 @@
   included: the port keeps its own copies).
 - yaml, PIL and cv2, which the card's machine may lack, are imported only
   inside the functions that need them, never at module level.
-- Importing the port's CLIs in a fresh interpreter leaves jax unloaded.
+- Importing the port's CLIs in a fresh interpreter leaves jax unloaded,
+  and builds or loads no native library (the PNG unfilter of
+  ``csrc/png_unfilter.cu`` loads at its first call, with the C signature
+  that ``data/png.py`` declares).
 """
 import ast
 import os
@@ -56,7 +59,8 @@ def test_the_port_has_files_to_check():
     for module in (("ops", "cuda", "select_kernel.py"), ("ops", "cuda", "attention.py"),
                    ("models", "segformer.py"), ("evaluation.py",), ("cli", "validate.py"),
                    ("ops", "losses.py"), ("selftrain", "train_state.py"), ("selftrain", "trainers.py"),
-                   ("utils", "recorder.py"), ("utils", "logging_utils.py"), ("cli", "train.py")):
+                   ("utils", "recorder.py"), ("utils", "logging_utils.py"), ("cli", "train.py"),
+                   ("ops", "color_aug.py"), ("data", "copy_paste.py"), ("data", "png.py")):
         assert os.path.join(REPO, "hiast_tpu_torch", *module) in files
 
 
@@ -78,9 +82,31 @@ def test_importing_the_cli_loads_no_jax():
         " r.populate();"
         " bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'hiast_tpu', 'yaml', 'PIL', 'cv2'));"
+        " from hiast_tpu_torch.data import png; from hiast_tpu_torch.ops.cuda import build;"
+        " bad += ['png_unfilter loaded'] if png._native or build._loaded else [];"
         " print(bad); sys.exit(1 if bad else 0)"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_png_unfilter_source_matches_its_loader():
+    """csrc/png_unfilter.cu is one of the sources the build compiles, and its
+    C function takes what ``data/png.py`` passes through ctypes: two
+    pointers, two 64-bit counts and an int, returning an int."""
+    import re
+
+    from hiast_tpu_torch.ops.cuda import build
+
+    assert "png_unfilter" in build.source_names()
+    with open(os.path.join(build.CSRC, "png_unfilter.cu")) as f:
+        source = f.read()
+    assert re.search(r'extern "C" int png_unfilter\(const uint8_t\* raw, uint8_t\* out, long long h, '
+                     r'long long stride, int bpp\)', source)
+    assert "__global__" not in source  # host code only
+    with open(os.path.join(REPO, "hiast_tpu_torch", "data", "png.py")) as f:
+        loader = f.read()
+    assert ('fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int]'
+            in loader and "fn.restype = ctypes.c_int" in loader)

@@ -1,4 +1,7 @@
-"""The port's CUDA kernels against their plain versions, on a card.
+"""The port's CUDA kernels against their plain versions, on a card, and
+the card path's two other native pieces: the PNG unfilter of
+csrc/png_unfilter.cu (host code, same build) and the strong view on the
+card.
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  The
 file imports neither JAX nor the JAX package, so on the card's machine
@@ -385,3 +388,38 @@ def test_sra_attention_backward_gives_the_same_bits(cuda_device, b, nq, nkv, h):
         grads.append((dq, dkv))
     torch.cuda.synchronize()
     assert torch.equal(grads[0][0], grads[1][0]) and torch.equal(grads[0][1], grads[1][1])
+
+
+@pytest.mark.parametrize("h,w,channels", [(64, 96, 3), (33, 17, 4), (40, 2048, 1)])
+def test_png_unfilter_native_matches_plain(cuda_device, h, w, channels):
+    """The host-side unfilter of csrc/png_unfilter.cu (the card's path) gives
+    the plain one's bytes on rows under every filter type."""
+    from hiast_tpu_torch.data import png
+
+    rng = np.random.default_rng(h)
+    raw = rng.integers(0, 256, size=(h, w * channels + 1)).astype(np.uint8)
+    raw[:, 0] = np.arange(h) % 5
+    np.testing.assert_array_equal(png.unfilter_native(raw, channels), png.unfilter_plain(raw, channels))
+    raw[h // 2, 0] = 9
+    with pytest.raises(ValueError, match=f"row {h // 2} has filter type 9"):
+        png.unfilter_native(raw, channels)
+
+
+@pytest.mark.parametrize("kind", ["CCA", "SCA"])
+def test_color_aug_on_the_card_matches_the_cpu(cuda_device, kind):
+    """The strong view in bf16 on the card against the same draws on the CPU,
+    within the JAX package's bf16 bounds (mean below 1.5 levels, the 99th
+    percentile below 16): bf16 rounds the sums of the gray, mean and blur
+    in other orders, which flips a few pixels at posterize, equalize and
+    solarize edges."""
+    from hiast_tpu_torch.ops import color_aug as P
+
+    imgs = torch.from_numpy(np.random.default_rng(3).integers(0, 256, size=(6, 128, 256, 3)).astype(np.uint8))
+    draws = P.draw_color_aug(6, kind, torch.Generator(cuda_device).manual_seed(0))
+    draws.gates[:] = True  # every transform
+    cpu = P.ColorAugDraws(**{k: (v.cpu() if torch.is_tensor(v) else v) for k, v in vars(draws).items()})
+    got = P.apply_color_aug(imgs.to(cuda_device), draws, torch.bfloat16)
+    want = P.apply_color_aug(imgs, cpu, torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.device.type == "cuda"
+    diff = (got.float().cpu() - want.float()).abs()
+    assert float(diff.mean()) < 1.5 and float(torch.quantile(diff.flatten(), 0.99)) < 16.0

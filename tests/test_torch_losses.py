@@ -1,5 +1,6 @@
 """The port's self-training losses (hiast_tpu_torch/ops/losses.py) against
-the JAX package's (hiast_tpu/ops/losses.py), on the CPU.
+the JAX package's (hiast_tpu/ops/losses.py), on the CPU: CE, SoftCE, KLDIV,
+MSE and BCEWithLogits over every region, and the region regularisers.
 
 Seeded numpy logits go to both, NHWC to JAX and NCHW to the port (each
 package's layout), with labels that include ignored pixels.  Both reduce in
@@ -88,3 +89,38 @@ def test_bfloat16_logits_reduce_in_float32():
     got = L.cross_entropy(x, lbl)
     assert got.dtype == torch.float32
     torch.testing.assert_close(got, L.cross_entropy(x.float(), lbl), rtol=0, atol=0)
+
+
+def _probs(seed):
+    """A teacher-like probability map, NHWC."""
+    x = np.random.default_rng(seed).normal(size=(B, H, W, C)).astype(np.float32) * 2
+    e = np.exp(x - x.max(-1, keepdims=True))
+    return (e / e.sum(-1, keepdims=True)).astype(np.float32)
+
+
+@pytest.mark.parametrize("name", ["SoftCE", "KLDIV", "MSE"])
+@pytest.mark.parametrize("region", [None, "confident", "ignored", "all"])
+def test_soft_losses_match_jax(name, region):
+    """SoftCE on a teacher's probabilities (with class weights too), KLDIV
+    between two logit maps, MSE between logits and a target map; each
+    plain or region-masked with the nonzero-mean protocol."""
+    logits = _inputs(5)[0]
+    refer = _inputs(6)[1]
+    target = _probs(7) if name == "SoftCE" else _inputs(8)[0]
+    kw = {} if region is None else {"region": region}
+    refer_j = None if region is None else jnp.asarray(refer)
+    refer_t = None if region is None else torch.from_numpy(refer)
+    weight_sets = [None, np.random.default_rng(9).uniform(0.5, 2.0, C).astype(np.float32)] if name == "SoftCE" else [None]
+    for weights in weight_sets:
+        want = JL.LOSS[name](jnp.asarray(logits), jnp.asarray(target), weights=weights, refer_labels=refer_j, **kw)
+        got = LOSS[name](_port(logits), _port(target), weights=weights, refer_labels=refer_t, **kw)
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-5, err_msg=f"{name} {region} {weights is not None}")
+
+
+def test_bce_with_logits_matches_jax():
+    logits = _inputs(10)[0]
+    labels = (np.random.default_rng(11).random(logits.shape) < 0.3).astype(np.float32)
+    want = JL.LOSS["BCEWithLogits"](jnp.asarray(logits), jnp.asarray(labels))
+    got = LOSS["BCEWithLogits"](_port(logits), _port(labels))
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+    torch.testing.assert_close(got, torch.nn.functional.binary_cross_entropy_with_logits(_port(logits), _port(labels)))

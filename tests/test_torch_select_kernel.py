@@ -242,3 +242,26 @@ def test_plain_versions_match_pallas_interpret_on_peaked_logits():
     assert not np.any(differ & ~near_thr)
     assert np.abs(counts.numpy() - np.asarray(per_sample)).sum() <= differ.sum()
     np.testing.assert_allclose(got_sums.numpy(), np.asarray(sums), rtol=1e-5, atol=float(differ.sum()))
+
+
+def test_select_plain_sums_in_float64():
+    """The plain ``ias_select``'s per-class confidence sums (the CPU path's
+    ``class_mean_probabilities.npy``, which picks the next round's hard
+    classes) are taken in float64 and cast: within 1e-6 relative of numpy's
+    float64 sum of the selected confidences, on peaked logits of 2 x 19 x
+    256 x 512 (a float32 running sum over this many confidences near 1
+    drifts past that)."""
+    rng = np.random.default_rng(23)
+    b, c, h, w = 2, 19, 256, 512
+    x = rng.normal(size=(b, c, h, w)).astype(np.float32)
+    cls = np.repeat(np.repeat(rng.integers(0, c, size=(b, 1, h // 16, w // 16)), 16, 2), 16, 3)
+    margin = (6.0 + rng.exponential(6.0, size=(b, 1, h, w))).astype(np.float32)
+    np.put_along_axis(x, cls, np.take_along_axis(x, cls, 1) + margin, 1)
+    logits = torch.from_numpy(x)
+    thresholds = torch.full((c,), 0.5, dtype=torch.float32)
+    labels, _, sums, maxprob = K.ias_select_plain(logits, thresholds, b * h * w, with_maxprob=True)
+    sel = labels.numpy() != 255
+    want = np.bincount(labels.numpy()[sel].astype(np.int64), weights=maxprob.numpy()[sel].astype(np.float64),
+                       minlength=c)
+    assert sums.dtype == torch.float32 and sel.mean() > 0.9
+    np.testing.assert_allclose(sums.numpy().astype(np.float64), want, rtol=1e-6)

@@ -20,7 +20,7 @@ from hiast_tpu_torch.config import default_config
 from hiast_tpu_torch.data import augment as A
 from hiast_tpu_torch.data.datasets import build_dataset
 from hiast_tpu_torch.data.pipeline import infinite_batches
-from hiast_tpu_torch.data.png import write_png
+from hiast_tpu_torch.data.png import unfilter_plain, write_png
 
 N_IMAGES, IMG_H, IMG_W = 7, 120, 240
 
@@ -95,7 +95,7 @@ def test_pseudo_label_dataset_matches_jax(target_root, aug):
     jcfg, cfg = _cfgs(target_root, aug)
     pseudo = str(target_root / "pseudo_label" / "gray_label")
     jds = jax_build_dataset(jcfg, "target", pseudo_dir=pseudo)
-    ds = build_dataset(cfg, "target", pseudo_dir=pseudo)
+    ds = build_dataset(cfg, "target", pseudo_dir=pseudo, unfilter=unfilter_plain)
     assert len(ds) == len(jds) == N_IMAGES
     assert ds.get_samples_with_class() == jds.get_samples_with_class()
     assert ds.get_file_to_idx("t_3.png") == jds.get_file_to_idx("t_3.png") == 3
@@ -117,8 +117,8 @@ def test_infinite_batches_order_matches_jax(target_root, num_workers):
     pseudo = str(target_root / "pseudo_label" / "gray_label")
     jstream = jax_infinite_batches(jax_build_dataset(jcfg, "target", pseudo_dir=pseudo), 3, seed=9,
                                    num_workers=num_workers)
-    stream = infinite_batches(build_dataset(cfg, "target", pseudo_dir=pseudo), 3, seed=9,
-                              num_workers=num_workers)
+    stream = infinite_batches(build_dataset(cfg, "target", pseudo_dir=pseudo, unfilter=unfilter_plain), 3,
+                              seed=9, num_workers=num_workers)
     for _ in range(6):
         want, got = next(jstream), next(stream)
         assert got["image_paths"] == want["image_paths"]
@@ -130,12 +130,13 @@ def test_infinite_batches_refuses_a_dataset_smaller_than_a_batch(target_root):
     """The JAX stream would spin without yielding here (every epoch drops its
     one partial batch); the port's raises at once."""
     _, cfg = _cfgs(target_root, ["MS"])
-    ds = build_dataset(cfg, "target", pseudo_dir=str(target_root / "pseudo_label" / "gray_label"))
+    ds = build_dataset(cfg, "target", pseudo_dir=str(target_root / "pseudo_label" / "gray_label"),
+                       unfilter=unfilter_plain)
     with pytest.raises(ValueError, match="fewer than one batch"):
         infinite_batches(ds, N_IMAGES + 1)
 
 
 def test_unported_augs_raise(target_root):
     _, cfg = _cfgs(target_root, ["DACS"])
-    with pytest.raises(NotImplementedError, match="A5"):
-        build_dataset(cfg, "target")
+    with pytest.raises(NotImplementedError, match="A14"):
+        build_dataset(cfg, "target", unfilter=unfilter_plain)

@@ -33,7 +33,7 @@ from hiast_tpu_torch.config import default_config
 from hiast_tpu_torch.models.convert import flax_to_port_state_dict
 from hiast_tpu_torch.models.segmentors import build_segmentor
 from hiast_tpu_torch.registry import populate
-from hiast_tpu_torch.selftrain.steps import make_self_training_step
+from hiast_tpu_torch.selftrain.steps import StepCount, make_self_training_step
 from hiast_tpu_torch.selftrain.train_state import lr_schedule, make_optimizer
 
 SETTINGS = {
@@ -111,7 +111,8 @@ def test_b0_step_matches_jax(monkeypatch):
     losses = step({
         "t_img": torch.from_numpy(batch["t_img"]),
         "t_plbl": torch.from_numpy(batch["t_plbl"].astype(np.uint8)),
-    }, 0)
+    }, count := StepCount())
+    assert count == StepCount(iterations=1, updates=1)
 
     assert sorted(losses) == sorted(want_losses) == ["ent_ignored_loss", "kld_confident_loss", "target_seg_loss"]
     for name, value in want_losses.items():
