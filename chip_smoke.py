@@ -95,11 +95,35 @@
    round's pseudo-labels from ``ema_model_last.pth`` over the 12 images
    (launches: ias_hist 6, ias_select 6), and checks that PIL was never
    imported.
-9. Prints one JSON line of the kernels, the card line again, and last
+9. The main path end to end, the round driver: seeded random full-width
+   DeepLab-v2/R101 weights as one ``.pth`` (warmup student and teacher); a
+   configs dir whose ``sl_1.yaml`` and ``sl_2.yaml`` are the port's shipped
+   files (``hiast_tpu_torch/configs/``) with only the data paths, the work
+   dir and the schedule changed (4 iterations, validation at the 4th), and
+   the shipped ``hiast_setting.yaml``, all read from YAML by the port's
+   reader (each held against the shipped file with those keys set); then
+   ``cli.run_rounds.main`` for 2 rounds on phase 8's 12 target images and
+   the 4 val images.  Checks each round's six artifacts, 6 launches each of
+   ``ias_hist`` and ``ias_select`` a round and none in training,
+   ``model_last.pth`` at step 4 in both rounds with round 2's weights moved,
+   ``ema_model_last.pth``, four finite losses an iteration; prints each
+   round's generation s and images/s, training s/iter and wall time.  A
+   re-run must skip both rounds and launch nothing; ``cli.validate.main``
+   with ``--config_file`` (the shipped ``validate.yaml``, val paths changed)
+   validates round 2's teacher; neither ``yaml`` nor ``PIL`` was imported.
+10. The other generation policies through the CLI on phase 3's 4 images from
+   the same weights: CT (threshold 0.9; ias_select 2, ias_hist 0), NT
+   (ias_select 2, no ``class_threshold.npy``, every pixel selected), CBST
+   (p 0.2; ias_hist 2 in its dataset pass, ias_select 2; its thresholds
+   within 1/num_bins of ``cbst_thresholds`` of ``ias_hist_plain``'s
+   histogram over the same forwards' logits) and IAS with ``ms_sizes``
+   [[576, 1152], [768, 1536], [960, 1920]] and flip (2 and 2); each prints
+   images/s.
+11. Prints one JSON line of the kernels, the card line again, and last
    ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` are those of
    the path it serves in this run: ``ias_hist``/``ias_select`` from the
-   generation from the consistency run's EMA teacher (the main path; their
-   times from the peaked input), ``sra_attention`` and
+   round driver's two generations (the main path; their times from the
+   peaked input), ``sra_attention`` and
    ``sra_attention_bwd`` from the SegFormer training run.  For ``sra_attention`` the
    times are per batch of the serving path (each stage's time times its
    launches per forward, 3, 6, 40, 3, summed), for ``sra_attention_bwd``
@@ -423,19 +447,29 @@ def write_target_set(root: str) -> tuple[str, str]:
     return json_path, os.path.join(root, "city")
 
 
-def check_artifacts(save_dir: str) -> None:
+def check_artifacts(save_dir: str, names: list | None = None, thresholds: str = "ias") -> None:
+    """The six artifacts of a generation into ``save_dir``: label PNGs named
+    ``names`` (default: the 4 ``t_<i>`` images) of HxW; ``thresholds`` is
+    "ias" (each in (0, 0.999]), "cbst" (in (0, 1], 1 for a class never
+    predicted) or None (NT: no class_threshold.npy)."""
     from hiast_tpu_torch.data.png import decode_png_file
 
-    names = sorted(os.listdir(save_dir))
-    check(names == [f"t_{i}_pseudo_label.png" for i in range(N_IMAGES)], f"label files {names}")
-    for name in names:
+    names = names or [f"t_{i}_pseudo_label.png" for i in range(N_IMAGES)]
+    found = sorted(os.listdir(save_dir))
+    check(found == sorted(names), f"label files {found}")
+    for name in found:
         lbl = decode_png_file(os.path.join(save_dir, name))
         check(lbl is not None and lbl.shape == (H, W) and lbl.dtype == np.uint8, f"{name} shape")
         check(bool(np.all((lbl < C) | (lbl == 255))), f"{name} values")
     stats = os.path.dirname(save_dir)
-    thr = np.load(os.path.join(stats, "class_threshold.npy"))
-    check(thr.shape == (C,) and np.all(np.isfinite(thr)) and np.all((thr > 0) & (thr <= 0.999)),
-          f"class_threshold {thr}")
+    thr_path = os.path.join(stats, "class_threshold.npy")
+    if thresholds is None:
+        check(not os.path.exists(thr_path), "class_threshold.npy written by a policy without thresholds")
+    else:
+        thr = np.load(thr_path)
+        top = 0.999 if thresholds == "ias" else 1.0
+        check(thr.shape == (C,) and np.all(np.isfinite(thr)) and np.all((thr > 0) & (thr <= top)),
+              f"class_threshold {thr}")
     statics = np.load(os.path.join(stats, "statics_class.npy"))
     check(statics.shape == (C,) and statics.min() >= 0, "statics_class")
     cmp = np.load(os.path.join(stats, "class_mean_probabilities.npy"))
@@ -443,7 +477,7 @@ def check_artifacts(save_dir: str) -> None:
           "class_mean_probabilities")
     with open(os.path.join(stats, "sample_class_stats.json")) as f:
         sample_stats = json.load(f)
-    check(len(sample_stats) == N_IMAGES, "sample_class_stats.json")
+    check(len(sample_stats) == len(names), "sample_class_stats.json")
     check(sum(v for s in sample_stats for k, v in s.items() if k != "file") == int(statics.sum()),
           "sample_class_stats.json totals")
     with open(os.path.join(stats, "samples_with_class.json")) as f:
@@ -814,8 +848,8 @@ R101_ARGV = ["model.seg_model.type", "DeepLab_V2", "model.seg_model.backbone_lay
 
 def train_argv(work_dir: str, pseudo_dir: str, json_path: str, image_dir: str, val_json: str, val_dir: str,
                init_from: str, total_iter: int, iter_val: int) -> list:
-    """cli.train arguments: hiast_tpu/configs/segformer_sl_1.yaml's settings
-    as overrides (this machine reads no YAML), the data and iterations of
+    """cli.train arguments: segformer_sl_1.yaml's settings as overrides
+    (phase 9 reads the shipped files from YAML), the data and iterations of
     this run."""
     return [
         "--device", "cuda", "--work_dir", work_dir, "--pseudo_save_dir", pseudo_dir,
@@ -1041,8 +1075,8 @@ def write_hiast_round(root: str) -> tuple[str, str, str]:
 
 def hiast_argv(work_dir: str, pseudo_dir: str, json_path: str, image_dir: str, val_json: str, val_dir: str,
                total_iter: int) -> list:
-    """cli.train arguments: hiast_tpu/configs/sl_1.yaml with
-    hiast_setting.yaml as overrides (this machine reads no YAML), random
+    """cli.train arguments: sl_1.yaml with hiast_setting.yaml as overrides
+    (phase 9 reads the same files from YAML), random
     DeepLab-v2/R101 weights from the trainer's seed, the data and
     iterations of this run, validation at the last."""
     return [
@@ -1198,6 +1232,264 @@ def consistency_phase(torch, work: str, profile: bool) -> dict:
     check("PIL" not in sys.modules, "PIL was imported")
     return {"counts": gen_counts, "s_per_iter": s_per_iter, "peak_gb": peak_gb, "mfu": mfu,
             "cca_ms": cca_ms, "ema_ms": ema_ms, "idle": idle}
+
+
+ROUND_ITERS = 4  # a round's iterations in the round-driver phase (8,000 in sl_k.yaml)
+PORT_CONFIGS = os.path.join(REPO, "hiast_tpu_torch", "configs")
+
+
+def rewrite_config(text: str, paths: dict, work_dir: str | None = None, total_iter: int | None = None) -> str:
+    """A shipped config's YAML text with the ``json_path`` and ``image_dir``
+    of the sections named in ``paths`` ({"target": (json, dir), ...}), the
+    work dir and the schedule (``total_iter``, and ``iter_val`` beside it)
+    replaced; every other line as it was."""
+    out, section = [], None
+    for line in text.splitlines():
+        key = line.split("#")[0].strip()
+        indent = line[: len(line) - len(line.lstrip())]
+        if key.endswith(":") and key[:-1] in ("source", "target", "val"):
+            section = key[:-1]
+        if section in paths and key.startswith("json_path:"):
+            line = f"{indent}json_path: '{paths[section][0]}'"
+        elif section in paths and key.startswith("image_dir:"):
+            line = f"{indent}image_dir: '{paths[section][1]}'"
+        elif work_dir is not None and key.startswith("work_dir:"):
+            line = f"work_dir: '{work_dir}'"
+        elif total_iter is not None and key.startswith("total_iter:"):
+            line = f"{indent}total_iter: {total_iter}\n{indent}iter_val: {total_iter}"
+        out.append(line)
+    return "\n".join(out) + "\n"
+
+
+def write_round_configs(work: str, target: tuple, val: tuple) -> str:
+    """The round-driver phase's configs dir: sl_1.yaml and sl_2.yaml are the
+    port's shipped files with the data paths, the work dir and the schedule
+    (ROUND_ITERS, validation at the last) changed, hiast_setting.yaml and
+    validate.yaml (its val paths changed) beside them.  Each is held, as the
+    port's reader reads it, against the shipped file with those keys set."""
+    from hiast_tpu_torch.config import load_config
+
+    configs = os.path.join(work, "configs")
+    os.makedirs(configs)
+    paths = {"target": target, "val": val}
+    for name in ("sl_1.yaml", "sl_2.yaml", "hiast_setting.yaml", "validate.yaml"):
+        with open(os.path.join(PORT_CONFIGS, name)) as f:
+            text = f.read()
+        if name.startswith("sl_"):
+            text = rewrite_config(text, paths, os.path.join(work, "rounds"), ROUND_ITERS)
+        elif name == "validate.yaml":
+            text = rewrite_config(text, {"val": val})
+        with open(os.path.join(configs, name), "w") as f:
+            f.write(text)
+        overrides = []
+        for section, (json_path, image_dir) in paths.items():
+            if name.startswith("sl_") or (name == "validate.yaml" and section == "val"):
+                overrides += [f"dataset.{section}.json_path", json_path, f"dataset.{section}.image_dir", image_dir]
+        if name.startswith("sl_"):
+            overrides += ["work_dir", os.path.join(work, "rounds"), "train.total_iter", str(ROUND_ITERS),
+                          "train.iter_val", str(ROUND_ITERS)]
+        got = load_config(os.path.join(configs, name)).to_dict()
+        want = load_config(os.path.join(PORT_CONFIGS, name), overrides=overrides).to_dict()
+        check(got == want, f"{name}: the written YAML reads as the shipped file with {overrides[::2]} set")
+    return configs
+
+
+def round_driver_phase(torch, work: str, target: tuple, val: tuple, pth: str) -> dict:
+    """The main path end to end: two HIAST rounds through
+    ``hiast_tpu_torch.cli.run_rounds`` on full-width DeepLab-v2/R101 from
+    the seeded weights at ``pth`` (warmup student and teacher), configs
+    read from YAML by the port's reader; then the re-run that skips both
+    rounds and the validation CLI from ``--config_file``.  Returns the
+    driver's launch counts (both generations)."""
+    import contextlib
+    import io
+
+    from hiast_tpu_torch.cli import generate_pseudo_labels as cli_generate
+    from hiast_tpu_torch.cli import run_rounds
+    from hiast_tpu_torch.cli import train as cli_train
+    from hiast_tpu_torch.cli import validate as cli_validate
+    from hiast_tpu_torch.utils.checkpoint import load_step
+
+    configs = write_round_configs(work, target, val)
+    rounds_dir = os.path.join(work, "rounds")
+    with open(target[0]) as f:
+        names = [os.path.splitext(os.path.basename(e["image_name"]))[0] + "_pseudo_label.png" for e in json.load(f)]
+    n_batches = -(-len(names) // B)
+    records: list[dict] = []
+    generate_main, train_main = cli_generate.main, cli_train.main
+
+    def generate(argv):  # each round's step 1, timed, with its launches
+        torch.cuda.synchronize()
+        before = read_counts()
+        t0 = time.perf_counter()
+        generator = generate_main(argv)
+        torch.cuda.synchronize()
+        counts = {k: v - before[k] for k, v in read_counts().items()}
+        records.append({"start": t0, "gen_s": time.perf_counter() - t0, "gen_loop_s": generator.run_seconds,
+                        "gen_counts": counts})
+        return generator
+
+    def train(argv):  # step 2: the trainer is dropped when it returns
+        before = read_counts()
+        t0 = time.perf_counter()
+        trainer = train_main(argv)
+        torch.cuda.synchronize()
+        rec = records[-1]
+        rec.update(train_s=time.perf_counter() - t0, losses=trainer.loss_log, iter_times=trainer.iter_times,
+                   pastes=list(trainer.paste_shares), end=time.perf_counter(),
+                   train_counts={k: v - before[k] for k, v in read_counts().items()})
+        del trainer
+        torch.cuda.empty_cache()
+        rec["allocated_gb"] = torch.cuda.memory_allocated() / 1e9
+
+    argv = ["--work_dir", rounds_dir, "--warmup_ckpt", pth, "--warmup_pseudo_ckpt", pth,
+            "--configs_dir", configs, "--rounds", "2"]
+    reset_counts()
+    cli_generate.main, cli_train.main = generate, train
+    try:
+        t0 = time.perf_counter()
+        run_rounds.main(argv)
+        wall = time.perf_counter() - t0
+    finally:
+        cli_generate.main, cli_train.main = generate_main, train_main
+    counts = read_counts()
+    per_round = {"ias_hist": n_batches, "ias_select": n_batches, "sra_attention": 0, "sra_attention_bwd": 0}
+    check(len(records) == 2, f"the driver ran {len(records)} generations, not 2")
+    check(counts == {k: 2 * v for k, v in per_round.items()}, f"round driver launch counts {counts}")
+    states = []
+    for k, rec in enumerate(records, 1):
+        round_dir = os.path.join(rounds_dir, f"sl_{k}")
+        check(rec["gen_counts"] == per_round, f"round {k} generation launches {rec['gen_counts']}")
+        check(all(v == 0 for v in rec["train_counts"].values()), f"round {k} training launches {rec['train_counts']}")
+        check_artifacts(os.path.join(round_dir, "pseudo_label", "gray_label"), names)
+        ckpt_dir = os.path.join(round_dir, "checkpoints")
+        check(load_step(ckpt_dir) == ROUND_ITERS, f"round {k}: model_last.pth at step {load_step(ckpt_dir)}")
+        check(os.path.exists(os.path.join(ckpt_dir, "ema_model_last.pth")), f"round {k}: ema_model_last.pth")
+        losses = rec["losses"]
+        check(len(losses) == ROUND_ITERS and all(np.isfinite(v) for step in losses for v in step.values())
+              and sorted(losses[0]) == ["cst_loss", "ent_ignored_loss", "kld_confident_loss", "target_seg_loss"],
+              f"round {k} losses {losses}")
+        states.append(torch.load(os.path.join(ckpt_dir, "model_last.pth"), map_location="cpu",
+                                 weights_only=True, mmap=True)["state_dict"])
+        times = rec["iter_times"]
+        s_per_iter = (times[-1] - times[1]) / (len(times) - 2)
+        round_s = (records[k]["start"] if k < len(records) else rec["end"]) - rec["start"]
+        for i, step in enumerate(losses, 1):
+            print(f"round {k} iter {i}: " + ", ".join(f"{name} {v:.5f}" for name, v in step.items())
+                  + f", pasted share {rec['pastes'][i - 1]:.4f}")
+        print(f"round {k}: generation {rec['gen_s']:.3f} s (batch loop {rec['gen_loop_s']:.3f} s, "
+              f"{len(names) / rec['gen_loop_s']:.3f} images/s, launches {rec['gen_counts']}); training "
+              f"{rec['train_s']:.3f} s, iterations 3-{ROUND_ITERS} {s_per_iter:.4f} s/iter; round wall "
+              f"{round_s:.3f} s; {rec['allocated_gb']:.3f} GB still allocated after it")
+        rec.update(s_per_iter=s_per_iter, round_s=round_s)
+    moved = max(float((states[0][n].float() - states[1][n].float()).abs().max()) for n in states[0]
+                if states[0][n].is_floating_point())
+    check(moved > 0, "round 2's model_last.pth equals round 1's")
+    print(f"round driver: 2 rounds in {wall:.3f} s; round 2's student moved {moved:.4g} (max |diff|) from "
+          f"round 1's; launches {counts}")
+
+    # a re-run finds both rounds done and launches nothing
+    reset_counts()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        run_rounds.main(argv)
+    print(log.getvalue(), end="")
+    check(all(f"round {k}: training already complete" in log.getvalue() for k in (1, 2)),
+          "the re-run did not skip both rounds")
+    check(all(v == 0 for v in read_counts().values()), f"the re-run launched kernels: {read_counts()}")
+
+    # validation of round 2's teacher through --config_file (validate.yaml)
+    result = cli_validate.main(["--device", "cuda", "--config_file", os.path.join(configs, "validate.yaml"),
+                                "--validate_resume_from", os.path.join(rounds_dir, "sl_2", "checkpoints",
+                                                                       "ema_model_last.pth")])
+    iou = np.asarray(result["iou"])
+    check(iou.shape == (C,) and bool(np.all(np.isfinite(iou))) and 0.0 <= result["miou"] <= 1.0,
+          f"validation of round 2's teacher: {result}")
+    print(f"validation [round 2's ema_model_last.pth, validate.yaml] miou {result['miou']:.4f}, batch loop "
+          f"{result['seconds']:.3f} s")
+    check("yaml" not in sys.modules, "yaml was imported")
+    check("PIL" not in sys.modules, "PIL was imported")
+    del states
+    return {"counts": counts, "records": records, "wall": wall}
+
+
+def policy_phase(torch, work: str, pth: str) -> None:
+    """CT, NT, CBST and IAS with multi-scale/flip generation through the CLI
+    on the 4 768x1536 images of the DeepLab slice, from the seeded R101
+    weights at ``pth``; CBST's thresholds are held against
+    ``cbst_thresholds`` of ``ias_hist_plain``'s histogram over the same
+    forwards' logits."""
+    from hiast_tpu_torch.cli import generate_pseudo_labels as cli
+    from hiast_tpu_torch.ops.cuda.select_kernel import ias_hist_plain
+    from hiast_tpu_torch.pseudo.policies import cbst_thresholds
+
+    check(N_IMAGES % B == 0, "the policy phase's batches are whole")
+    n_batches = N_IMAGES // B
+    plain_hists = []
+    make_forward = cli.make_forward
+
+    def make_recording_forward(cfg, segmentor, device):
+        """The CLI's forward; over CBST's first pass it also sums the plain
+        histogram of the logits it returns."""
+        forward = make_forward(cfg, segmentor, device)
+        calls = [0]
+
+        def recording(images):
+            out = forward(images)
+            if cfg.pseudo_policy.type == "CBST" and calls[0] < n_batches:
+                plain_hists.append(ias_hist_plain(out["full"], images.shape[0] * H * W, NUM_BINS).double())
+            calls[0] += 1
+            return out
+
+        return recording
+
+    cases = (
+        ("CT", ["pseudo_policy.type", "CT", "pseudo_policy.ct.threshold", "0.9"], 0, "ias"),
+        ("NT", ["pseudo_policy.type", "NT"], 0, None),
+        ("CBST", ["pseudo_policy.type", "CBST", "pseudo_policy.cbst.p", "0.2"], n_batches, "cbst"),
+        ("IAS ms/flip", ["pseudo_policy.type", "IAS", "pseudo_policy.ms_sizes",
+                         f"[[{H * 3 // 4}, {W * 3 // 4}], [{H}, {W}], [{H * 5 // 4}, {W * 5 // 4}]]",
+                         "pseudo_policy.is_flip", "True"], n_batches, "ias"),
+    )
+    cli.make_forward = make_recording_forward
+    try:
+        for tag, policy_argv, hist_launches, thresholds in cases:
+            save_dir = os.path.join(work, "policies", tag.split()[0] + ("_ms" if "ms" in tag else ""),
+                                    "pseudo_label", "gray_label")
+            argv = [
+                "--device", "cuda", "--pseudo_resume_from", pth, "--pseudo_save_dir", save_dir,
+                "model.type", "SelfTrainingSegmentor", *R101_ARGV,
+                "dataset.num_classes", str(C), "dataset.target.type", "Cityscapes",
+                "dataset.target.json_path", os.path.join(work, "target.json"),
+                "dataset.target.image_dir", os.path.join(work, "city"),
+                "pseudo_policy.batch_size", str(B), "pseudo_policy.resize_size", f"[{H}, {W}]",
+                "pseudo_policy.num_hist_bins", str(NUM_BINS), "pseudo_policy.stats_source", "full",
+                *policy_argv,
+            ]
+            reset_counts()
+            generator = cli.main(argv)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            expected = {"ias_hist": hist_launches, "ias_select": n_batches, "sra_attention": 0,
+                        "sra_attention_bwd": 0}
+            check(counts == expected, f"generation [{tag}] launch counts {counts}, expected {expected}")
+            check_artifacts(save_dir, thresholds=thresholds)
+            stats = os.path.dirname(save_dir)
+            selected = float(np.load(os.path.join(stats, "statics_class.npy")).sum()) / (N_IMAGES * H * W)
+            extra = ""
+            if tag == "NT":
+                check(selected == 1.0, f"NT selected {selected} of the pixels")
+            if tag == "CBST":
+                thr = np.load(os.path.join(stats, "class_threshold.npy"))
+                want = cbst_thresholds(sum(plain_hists), 0.2).cpu().numpy()
+                diff = float(np.abs(thr - want).max())
+                check(diff <= 1.0 / NUM_BINS, f"CBST thresholds against the plain histogram's: {diff}")
+                extra = f", thresholds within {diff:.3g} of the plain histogram's (1/num_bins {1 / NUM_BINS:.3g})"
+            print(f"generation [{tag}] {N_IMAGES} images: batch loop {generator.run_seconds:.3f} s "
+                  f"({N_IMAGES / generator.run_seconds:.3f} images/s), launches {counts}, "
+                  f"selected share {selected:.4f}{extra}")
+    finally:
+        cli.make_forward = make_forward
 
 
 def validation_run(torch, tag: str, pth: str, json_path: str, image_dir: str) -> float:
@@ -1404,8 +1696,25 @@ def main(argv: list[str]) -> int:
           f"per batch, EMA update {hiast['ema_ms']:.4f} ms, device idle at least {hiast['idle']:.3f} "
           f"(batch {TRAIN_B}, {TRAIN_H}x{TRAIN_W}, "
           f"DeepLab-v2/R101, on {card})")
-    for name in ("ias_hist", "ias_select"):  # the main path: generation from the round's EMA teacher
-        counts[name] = hiast["counts"][name]
+    check(hiast["counts"]["ias_hist"] == hiast["counts"]["ias_select"] == -(-N_TRAIN_IMAGES // B),
+          f"generation from the consistency run's teacher: launches {hiast['counts']}")
+
+    from hiast_tpu_torch.models.deeplab_v2 import DeepLabV2
+
+    pth = os.path.join(work, "deeplab_r101.pth")  # warmup student and teacher of the rounds
+    model = DeepLabV2(num_classes=C)
+    model.init_weights(torch.Generator().manual_seed(0))
+    torch.save(model.state_dict(), pth)
+    del model
+    rounds = round_driver_phase(torch, work, (os.path.join(work, "hiast.json"), os.path.join(work, "hiast")),
+                                (os.path.join(work, "val.json"), os.path.join(work, "val")), pth)
+    for k, rec in enumerate(rounds["records"], 1):
+        print(f"round {k} warm: generation {N_TRAIN_IMAGES / rec['gen_loop_s']:.3f} images/s, training "
+              f"{rec['s_per_iter']:.4f} s/iter, round wall {rec['round_s']:.3f} s (batch {TRAIN_B}, "
+              f"{ROUND_ITERS} iterations, DeepLab-v2/R101, on {card})")
+    for name in ("ias_hist", "ias_select"):  # the main path: the round driver's two generations
+        counts[name] = rounds["counts"][name]
+    policy_phase(torch, work, pth)
 
     rows = []
     sources = {

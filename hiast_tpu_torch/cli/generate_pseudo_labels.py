@@ -2,10 +2,13 @@
 code/generate_pseudo_labels.py; the JAX package's
 ``hiast_tpu/cli/generate_pseudo_labels.py``).
 
-    python -m hiast_tpu_torch.cli.generate_pseudo_labels --config_file configs/sl_1.yaml \
+    python -m hiast_tpu_torch.cli.generate_pseudo_labels \
+        --config_file hiast_tpu_torch/configs/sl_1.yaml \
         --pseudo_resume_from .../pseudo_resume_from.pth \
         --pseudo_save_dir .../sl_1/pseudo_label/gray_label [--device cuda|cpu]
 
+``pseudo_policy.type`` picks IAS, CT, NT or CBST (``pseudo/generator.py``);
+``pseudo_policy.ms_sizes`` / ``is_flip`` fuse scaled and mirrored views.
 Runs on the card by default; ``--device cpu`` runs the plain PyTorch
 versions of the kernels (tests).
 """
@@ -37,19 +40,43 @@ def make_forward(cfg, segmentor, device: torch.device):
     bf16; the logits are cast to fp32 before the align_corners=True bilinear
     upsampling.  The 'low' grid feeds threshold statistics when
     ``pseudo_policy.stats_source`` is 'low'; 'full' feeds the selection.
+
+    With ``pseudo_policy.ms_sizes`` / ``is_flip`` (the JAX CLI's fusion):
+    the normalised image is resized to each size (not where it is the
+    native one), each view's logits are resized to its input and softmaxed,
+    a flipped view's probabilities are flipped back and added, the sum is
+    resized to the native size and divided by the view count, and both
+    outputs are ``log(fused + 1e-12)``, 'low' its [::8, ::8] grid (made
+    contiguous: the kernels read contiguous NCHW).
     """
-    if cfg.pseudo_policy.ms_sizes or cfg.pseudo_policy.is_flip:
-        raise NotImplementedError(
-            "multi-scale / flip generation (pseudo_policy.ms_sizes, is_flip) is "
-            "ROADMAP.md item A4: not ported yet"
-        )
+    ms_sizes = [tuple(size) for size in (cfg.pseudo_policy.ms_sizes or [])]
+    is_flip = bool(cfg.pseudo_policy.is_flip)
+
+    def probs(img: torch.Tensor) -> torch.Tensor:
+        logits = segmentor.raw_apply(img, torch.bfloat16)["logits"].float()
+        return torch.softmax(bilinear_resize(logits, img.shape[2], img.shape[3]), dim=1)
 
     @torch.inference_mode()
     def forward(images: np.ndarray) -> dict:
         x = torch.from_numpy(np.ascontiguousarray(images)).to(device, non_blocking=True)
-        low = segmentor.raw_apply(normalize_image(x), torch.bfloat16)["logits"].float()
-        full = bilinear_resize(low, images.shape[1], images.shape[2]).contiguous()
-        return {"full": full, "low": low.contiguous()}
+        img = normalize_image(x)
+        h, w = images.shape[1], images.shape[2]
+        if not (ms_sizes or is_flip):
+            low = segmentor.raw_apply(img, torch.bfloat16)["logits"].float()
+            full = bilinear_resize(low, h, w).contiguous()
+            return {"full": full, "low": low.contiguous()}
+        sizes = ms_sizes or [(h, w)]
+        fused = None
+        for rh, rw in sizes:
+            scaled = bilinear_resize(img, rh, rw)  # no resize at the native size
+            p = probs(scaled)
+            if is_flip:
+                p = p + torch.flip(probs(torch.flip(scaled, dims=[3])), dims=[3])
+            p = bilinear_resize(p, h, w)
+            fused = p if fused is None else fused + p
+        # each softmax sums to 1, so the view count renormalises exactly
+        logp = torch.log(fused / (len(sizes) * (2 if is_flip else 1)) + 1e-12)
+        return {"full": logp, "low": logp[:, :, ::8, ::8].contiguous()}
 
     return forward
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 import warnings
 from typing import Any, Mapping
 
+from hiast_tpu_torch.config import yaml_subset
 from hiast_tpu_torch.config.node import ConfigNode
 from hiast_tpu_torch.config.schema import default_config
 
@@ -50,13 +51,10 @@ def _strip_legacy(tree: Mapping[str, Any], prefix: str = "") -> dict:
 
 
 def load_yaml(path: str) -> dict:
-    # imported here: a config built from defaults plus overrides needs no
-    # YAML package, and a machine may not have one
-    import yaml
-
-    with open(path) as f:
-        data = yaml.safe_load(f)
-    return data or {}
+    """The mapping in a config file, read by the port's own reader of the
+    YAML subset the configs use (``yaml_subset``): one path on every
+    machine, the card's included, which has no YAML package."""
+    return yaml_subset.load(path) or {}
 
 
 def load_config(

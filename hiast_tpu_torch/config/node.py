@@ -9,7 +9,7 @@ the semantics the reference relies on:
   error (catches config typos),
 - type coercion on merge (int -> float where the default is float),
 - ``freeze()`` making the tree immutable,
-- YAML round-trip (``to_dict`` / ``dump``).
+- export as plain dicts (``to_dict``; the trainers write it as JSON).
 """
 from __future__ import annotations
 
@@ -103,11 +103,6 @@ class ConfigNode:
         for k, v in self._fields.items():
             out[k] = v.to_dict() if isinstance(v, ConfigNode) else copy.deepcopy(v)
         return out
-
-    def dump(self) -> str:
-        import yaml
-
-        return yaml.safe_dump(self.to_dict(), sort_keys=False)
 
     def __repr__(self) -> str:
         return f"ConfigNode({self.to_dict()!r})"

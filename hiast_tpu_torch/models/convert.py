@@ -38,6 +38,9 @@ weights across:
   and maps a bare torchvision ResNet (``conv1.*``, ``layer1.*``, ``fc.*``)
   into ``backbone.`` with the ImageNet classifier dropped (reference:
   code/sseg/models/modules/resnet.py:193-214).
+- ``port_state_dict``: any of these ``.pth`` contents, or a train state of
+  the port, -> the port's keys (what ``load_weights`` and
+  ``cli/convert_checkpoint.py`` read).
 """
 from __future__ import annotations
 
@@ -203,3 +206,14 @@ def hf_to_port_state_dict(state_dict: Mapping) -> dict[str, torch.Tensor]:
             raise KeyError(f"{base}: HF checkpoint has only {sorted(halves)} of key/value {leaf}")
         out[f"{base}.attn.kv.{leaf}"] = torch.cat([halves["key"], halves["value"]], 0)
     return out
+
+
+def port_state_dict(state: Mapping) -> dict:
+    """Any ``.pth`` the port reads -> its weights under the port's names: a
+    train state's ``state_dict``, a HuggingFace SegFormer renamed, then
+    ``reference_to_port_state_dict``."""
+    if "state_dict" in state:
+        state = state["state_dict"]
+    if is_hf_segformer_layout(state.keys()):
+        state = hf_to_port_state_dict(state)
+    return reference_to_port_state_dict(state)

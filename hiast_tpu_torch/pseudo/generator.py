@@ -11,11 +11,21 @@ consumes (reference: code/workflows/pseudo_label_generator.py:48-62):
     <save_dir>/../sample_class_stats.json    per-image per-class pixel counts
     <save_dir>/../samples_with_class.json    {class: [[image, pixels], ...]}
 
-Per batch on the card: the forward, the ``ias_hist`` kernel, the IAS
-threshold update, the ``ias_select`` kernel and the class-mean EMA, all
-queued without a synchronisation; the host copies the uint8 label maps back
-one batch late and writes the PNGs on a thread pool.  The CT/NT/CBST
-policies come with a later slice (ROADMAP.md item A3).
+The policies (``PSEUDO_POLICY``):
+
+- ``IAS``, the instance-adaptive selector: per batch on the card the
+  forward, the ``ias_hist`` kernel, the IAS threshold update, the
+  ``ias_select`` kernel and the class-mean EMA, all queued without a
+  synchronisation;
+- ``CT``, one constant threshold for every class, and ``NT``, no threshold
+  (every valid pixel; the kernel gets zeros, and no ``class_threshold.npy``
+  is written): ``ias_select`` only;
+- ``CBST``: a first pass sums ``ias_hist`` over the whole target set (in
+  float64), the class-balanced thresholds come from that histogram, and a
+  second pass selects with ``ias_select``.  Both passes draw the same order.
+
+The host copies the uint8 label maps back one batch late and writes the
+PNGs on a thread pool.
 """
 from __future__ import annotations
 
@@ -206,8 +216,76 @@ class BasePseudoGenerator:
         if prev is not None:
             self._record_batch(*self._finish_fetch(prev[0]), prev[1])
 
-    def run(self):
+    def generate(self) -> None:
+        """The policy's passes over the dataset; sets ``class_threshold``
+        (None: not written) and ``class_mean_probs``."""
         raise NotImplementedError
+
+    def run(self):
+        if self.already_done():
+            print(f"%% pseudo labels already exist in {self.save_dir}; skipping")
+            return
+        self.prepare_dirs()
+        start = time.perf_counter()
+        self.generate()
+        self.save_data()
+        self.run_seconds = time.perf_counter() - start
+        n = len(self.sample_stats)
+        print(f"%% {self.cfg.pseudo_policy.type}: {n} images in {self.run_seconds:.3f} s "
+              f"({n / self.run_seconds:.2f} images/s)")
+
+
+@PSEUDO_POLICY.register("CT")
+class ConstantThresholdGenerator(BasePseudoGenerator):
+    """One threshold for every class (``pseudo_policy.ct.threshold``)."""
+
+    def initial_thresholds(self) -> torch.Tensor | None:
+        return torch.full((self.num_classes,), self.cfg.pseudo_policy.ct.threshold,
+                          dtype=torch.float32, device=self.device)
+
+    def generate(self):
+        thresholds = self.initial_thresholds()
+        # NT: zeros select every valid pixel, as JAX's thresholds=None does
+        select_thr = thresholds if thresholds is not None else torch.zeros(
+            self.num_classes, dtype=torch.float32, device=self.device)
+        cmp = torch.zeros(self.num_classes, dtype=torch.float32, device=self.device)
+
+        def step(batch):
+            nonlocal cmp
+            images, n_valid, paths = self._pad(batch)
+            full, _ = self._forward(images)
+            plbl, counts, sums, _ = ias_select(full, select_thr, n_valid * full.shape[2] * full.shape[3])
+            cmp = P.update_class_mean_probs(cmp, sums, counts.sum(0).float(),
+                                            self.cfg.preprocessor.copy_paste.gamma)
+            return plbl, counts, paths
+
+        self._run_select_loop(step)
+        self.class_mean_probs = cmp.cpu().numpy()
+        if thresholds is not None:
+            self.class_threshold = thresholds.cpu().numpy()
+
+
+@PSEUDO_POLICY.register("NT")
+class NoThresholdGenerator(ConstantThresholdGenerator):
+    """Every valid pixel is its argmax; no ``class_threshold.npy``."""
+
+    def initial_thresholds(self):
+        return None
+
+
+@PSEUDO_POLICY.register("CBST")
+class CBSTGenerator(ConstantThresholdGenerator):
+    """Two passes: the dataset's per-class histogram, then selection."""
+
+    def initial_thresholds(self):
+        # float64: a float32 sum of per-batch counts stops being exact past
+        # 2^24 pixels of a bin, which a full target set passes
+        hist = torch.zeros((self.num_classes, self.num_bins), dtype=torch.float64, device=self.device)
+        for batch in self.data_iter_factory():
+            images, n_valid, _ = self._pad(batch)
+            _, stats = self._forward(images)
+            hist += ias_hist(stats, n_valid * stats.shape[2] * stats.shape[3], self.num_bins)
+        return P.cbst_thresholds(hist, self.cfg.pseudo_policy.cbst.p)
 
 
 @PSEUDO_POLICY.register("IAS")
@@ -231,12 +309,7 @@ class IASGenerator(BasePseudoGenerator):
         )
         return plbl, counts, P.IASState(new_thr, new_cmp)
 
-    def run(self):
-        if self.already_done():
-            print(f"%% pseudo labels already exist in {self.save_dir}; skipping")
-            return
-        self.prepare_dirs()
-        start = time.perf_counter()
+    def generate(self):
         state = P.IASState(
             thresholds=torch.full((self.num_classes,), 0.9, dtype=torch.float32, device=self.device),
             class_mean_probs=torch.zeros(self.num_classes, dtype=torch.float32, device=self.device),
@@ -252,7 +325,3 @@ class IASGenerator(BasePseudoGenerator):
         self._run_select_loop(step)
         self.class_threshold = state.thresholds.cpu().numpy()
         self.class_mean_probs = state.class_mean_probs.cpu().numpy()
-        self.save_data()
-        self.run_seconds = time.perf_counter() - start
-        n = len(self.sample_stats)
-        print(f"%% IAS: {n} images in {self.run_seconds:.3f} s ({n / self.run_seconds:.2f} images/s)")

@@ -1,7 +1,7 @@
-"""Pseudo-label selection policy math (IAS), in PyTorch.
+"""Pseudo-label selection policy math (IAS, CBST), in PyTorch.
 
-The port of the IAS part of ``hiast_tpu/pseudo/policies.py`` (reference:
-code/workflows/pseudo_label_generator.py:67-106,168-213).  Per-class
+The port of the IAS and CBST parts of ``hiast_tpu/pseudo/policies.py``
+(reference: code/workflows/pseudo_label_generator.py:67-106,142-213).  Per-class
 confidence populations are fixed-shape [C, num_bins] histograms (built by the
 ``ias_hist`` kernel, ops/cuda/select_kernel.py); quantiles interpolate the
 histogram CDF; the IAS threshold vector is state carried across batches.
@@ -97,3 +97,15 @@ def update_class_mean_probs(
     mean = prob_sums / torch.clamp(counts, min=1.0)
     updated = torch.where(cmp == 0.0, mean, cmp * gamma + mean * (1.0 - gamma))
     return torch.where(counts > 0, updated, cmp)
+
+
+def cbst_thresholds(hist: torch.Tensor, p: float) -> torch.Tensor:
+    """CBST: each class's quantile at 1 - p of the whole dataset's histogram
+    (reference pseudo_label_generator.py:142-165), float32.  The quantile
+    runs in the histogram's dtype (the generator sums float64 counts).
+    Classes never predicted keep 1.0."""
+    c = hist.shape[0]
+    q = torch.full((c,), 1.0 - p, dtype=torch.float32, device=hist.device)
+    thr = histogram_quantile(hist, q)
+    empty = hist.sum(dim=1) == 0
+    return torch.where(empty, torch.ones_like(thr), thr).float()

@@ -7,7 +7,8 @@ module's state_dict by name and shape, the counts are logged, and a file that
 shares nothing with the module raises.
 
 ``save_train_state`` writes the trainer's full state as one ``.pth``:
-``{'state_dict', 'optimizer', 'step', 'lr_schedule_step'}``.  The weights
+``{'state_dict', 'optimizer', 'step', 'lr_schedule_step'}``, and
+``load_step`` reads back only its step (the JAX package's ``load_step``).  The weights
 under ``state_dict`` are the reference layout, so ``load_weights`` (and the
 generation and validation CLIs) read a trainer checkpoint as it is.  The
 file is written beside its target and moved over it with ``os.replace``,
@@ -22,17 +23,14 @@ from __future__ import annotations
 
 import logging
 import os
+import pickle
 import re
 import shutil
 
 import torch
 from torch import nn
 
-from hiast_tpu_torch.models.convert import (
-    hf_to_port_state_dict,
-    is_hf_segformer_layout,
-    reference_to_port_state_dict,
-)
+from hiast_tpu_torch.models.convert import port_state_dict
 
 log = logging.getLogger("hiast_tpu_torch")
 
@@ -51,12 +49,7 @@ def load_weights(path: str, module: nn.Module) -> nn.Module:
             "(any trunk), or for DeepLab write one with "
             "hiast_tpu.utils.checkpoint.export_pth(path, variables)"
         )
-    state = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(state, dict) and "state_dict" in state:
-        state = state["state_dict"]
-    if is_hf_segformer_layout(state.keys()):
-        state = hf_to_port_state_dict(state)
-    state = reference_to_port_state_dict(state)
+    state = port_state_dict(torch.load(path, map_location="cpu", weights_only=True))
     target = module.state_dict()
     matched, skipped = 0, []
     for key, value in state.items():
@@ -99,6 +92,22 @@ def load_train_state(path: str) -> dict | None:
     state = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(state, dict) and {"state_dict", "optimizer", "step"} <= set(state):
         return state
+    return None
+
+
+def load_step(ckpt_dir: str, name: str = "model_last") -> int | None:
+    """The ``step`` saved in ``<ckpt_dir>/<name>.pth``, or None when the file
+    is missing, holds weights only or cannot be read.  The round driver
+    probes it once a round to decide skip / resume / fresh start
+    (``cli/run_rounds.py``); the file is memory-mapped, so the hundreds of
+    MB of weights and optimizer moments beside the step are not read."""
+    path = os.path.join(ckpt_dir, f"{name}.pth")
+    try:
+        state = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+    except (OSError, RuntimeError, EOFError, ValueError, pickle.UnpicklingError):
+        return None
+    if isinstance(state, dict) and "step" in state:
+        return int(state["step"])
     return None
 
 

@@ -141,6 +141,44 @@ def test_kernels_match_plain_on_peaked_logits(cuda_device, nvalid):
     _check_select(x, thr, nvalid)
 
 
+@pytest.mark.parametrize("nvalid", [B * H * W, H * W + 7])
+def test_select_kernel_with_zero_thresholds_takes_every_valid_pixel(cuda_device, nvalid):
+    """NT: all-zero thresholds select every valid pixel, as the plain version
+    does (and JAX's thresholds=None)."""
+    x = _logits(8, cuda_device)
+    zeros = torch.zeros(C, device=cuda_device)
+    labels, counts, sums, _ = K.ias_select(x, zeros, nvalid)
+    want = K.ias_select_plain(x, zeros, nvalid)
+    torch.cuda.synchronize()
+    assert torch.equal(labels, want[0]) and torch.equal(counts, want[1])
+    assert int(counts.sum()) == nvalid and int((labels != 255).sum()) == nvalid
+    torch.testing.assert_close(sums, want[2], rtol=1e-4, atol=0)
+
+
+def test_cbst_float64_sum_of_hist_kernels_matches_plain(cuda_device):
+    """CBST's dataset pass: the float64 sum of several ``ias_hist`` calls (the
+    last batch cut by nvalid) against the plain histograms' sum, and the
+    CBST thresholds of both within one bin."""
+    from hiast_tpu_torch.pseudo.policies import cbst_thresholds
+
+    num_bins = 2048
+    got = torch.zeros(C, num_bins, dtype=torch.float64, device=cuda_device)
+    want = torch.zeros_like(got)
+    calls = [(_peaked(20 + i, cuda_device) if i % 2 else _logits(20 + i, cuda_device), B * H * W) for i in range(3)]
+    calls.append((_peaked(30, cuda_device), H * W))
+    K.reset_launch_counts()
+    for x, nvalid in calls:
+        got += K.ias_hist(x, nvalid, num_bins)
+        want += K.ias_hist_plain(x, nvalid, num_bins)
+    torch.cuda.synchronize()
+    assert K.launch_counts["ias_hist"] == len(calls)
+    torch.testing.assert_close(got.sum(1), want.sum(1), rtol=0, atol=0)
+    assert float(got.sum()) == sum(n for _, n in calls)
+    assert float((got - want).abs().sum()) <= 2 * len(calls)
+    thr_diff = float((cbst_thresholds(got, 0.2) - cbst_thresholds(want, 0.2)).abs().max())
+    assert thr_diff <= 1.0 / num_bins
+
+
 @pytest.mark.parametrize("c", [9, 19])
 # every cluster size the launcher picks (1, 4, 8, 16), and at 19 x 8192 a
 # 16-block cluster whose slices (38,912 B) outgrow 24 KB
