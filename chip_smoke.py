@@ -19,7 +19,12 @@
    bin, about 0.73, 0.16 and 0.44).  Two ``ias_select`` calls must give the
    same bits.  Times each kernel on each input (median of 20 runs, CUDA
    events) beside its plain version and its bytes bound; the kernels' JSON
-   rows carry the peaked input's times.
+   rows carry the peaked input's times.  The same checks and times at the
+   Oxford scenario's shapes, [2, 9, 768, 1280] (and [2, 9, 96, 160] for
+   the histogram), the peaked input drawn with Cityscapes' shares mapped
+   through the Cityscapes -> 9-class table (the 9-class instantiation);
+   and the checks, untimed, at 7 classes on [2, 7, 96, 160] (the generic
+   instantiation, which no path launches).
 3. DeepLab slice: writes 4 synthetic 768x1536 target images, runs IAS
    pseudo-label generation through the port's CLI ``main`` on full-width
    DeepLab-v2/ResNet-101 (random weights from a seed, batch 2, 2048 bins,
@@ -119,12 +124,45 @@
    histogram over the same forwards' logits) and IAS with ``ms_sizes``
    [[576, 1152], [768, 1536], [960, 1920]] and flip (2 and 2); each prints
    images/s.
-11. Prints one JSON line of the kernels, the card line again, and last
+11. The warmup stage, the handoff and the Oxford round:
+   a. The adversarial warmup (GTA5 -> Cityscapes): 12 synthetic GTA5-sized
+      frames (1052x1914) with 8-bit palette labels in GTA ids, phase 8's
+      12 target images and the 4 val images; ``cli.train.main`` with the
+      port's shipped ``warmup_adversarial.yaml`` read from YAML (only the
+      data paths, the work dir and the schedule changed: 8 iterations,
+      validation at the last) and ``train.init_from`` the seeded R101
+      ``.pth``: ``AdversarialWarmupTrainer``, batch 6 source + 6 target of
+      512x1024 'MS' crops, ``FCDiscriminator`` on the softmax, MSE.
+      Checks each iteration's three losses finite, that every
+      discriminator tensor moved from its seeded initialisation, and that
+      ``model_last.pth`` holds the discriminator's state, its Adam state
+      and its schedule count at step 8; prints s/iter (iterations 3-8, and
+      steady), peak memory, the idle share of 3 profiled steps, and MFU
+      (FlopCounterMode over the step's two trunk forwards and their
+      backward and the discriminator's three forwards and two backward
+      paths, over 989 TFLOP/s).
+   b. SYNTHIA source-only: 6 frames of 760x1280 with 16-bit RGB labels,
+      ``SourceOnlyTrainer`` for 4 iterations (batch 6, 'MS').
+   c. The handoff: ``cli.run_rounds --rounds 1`` from the warmup's
+      ``model_last.pth`` (student and teacher) with phase 9's configs:
+      six artifacts, ias_hist 6 and ias_select 6, finite losses.
+   d. The Cityscapes -> Oxford round at 9 classes, with the shipped
+      ``oxford_sl_1.yaml`` read from YAML: 12 synthetic 960x1280 frames
+      in the unlabelled split and 4 val frames with Oxford-id labels
+      (8-bit gray, RGB and RGBA, 16-bit gray), a seeded 9-class R101
+      ``.pth``; IAS generation at 768x1280 (six artifacts, ias_hist 6 and
+      ias_select 6 at C = 9), 4 iterations of ``SelfTrainingTrainer`` on
+      'OMS' 768x1024 crops, then ``cli.validate`` with the 9-class
+      protocol; prints images/s and s/iter.
+12. Prints one JSON line of the kernels, the card line again, and last
    ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` are those of
    the path it serves in this run: ``ias_hist``/``ias_select`` from the
    round driver's two generations (the main path; their times from the
    peaked input), ``sra_attention`` and
-   ``sra_attention_bwd`` from the SegFormer training run.  For ``sra_attention`` the
+   ``sra_attention_bwd`` from the SegFormer training run.  The IAS rows
+   also carry ``launches_by_path`` (the round driver, the handoff round,
+   the Oxford generation) and ``c9``, the times at [2, 9, 768, 1280].  For
+   ``sra_attention`` the
    times are per batch of the serving path (each stage's time times its
    launches per forward, 3, 6, 40, 3, summed), for ``sra_attention_bwd``
    per training step.
@@ -214,6 +252,8 @@ TRAIN_ATTN_SHAPES = (
 CITYSCAPES_SHARES = (36.9, 6.08, 22.8, 0.656, 0.877, 1.23, 0.208, 0.551, 15.9, 1.16,
                      4.01, 1.22, 0.135, 7.00, 0.268, 0.235, 0.233, 0.099, 0.414)
 PEAK_BLOCK = 48
+OX_C, OX_H, OX_W = 9, 768, 1280  # the Oxford scenario's generation: 9 classes at 768x1280
+OX_LOW_H, OX_LOW_W = OX_H // 8, OX_W // 8
 
 
 def gaussian_logits(shape: tuple, seed: int) -> np.ndarray:
@@ -221,21 +261,34 @@ def gaussian_logits(shape: tuple, seed: int) -> np.ndarray:
     return np.random.default_rng(seed).standard_normal(shape, dtype=np.float32) * 3
 
 
-def peaked_logits(shape: tuple, seed: int) -> np.ndarray:
+def peaked_logits(shape: tuple, seed: int, shares=CITYSCAPES_SHARES) -> np.ndarray:
     """Logits shaped like a trained model's: each sample is a map of 48x48
-    blocks of one class, drawn with Cityscapes' pixel shares; the other
-    logits are N(0, 1) and the block's class gets +6 plus an exponential
-    margin of mean 6 per pixel.  About 73% of the pixels have p >= 0.99 and
-    16% p == 1.0 exactly (float32), so 44% fall in bin 2047 of 2048."""
+    blocks of one class, drawn with ``shares`` (Cityscapes' pixel shares by
+    default); the other logits are N(0, 1) and the block's class gets +6
+    plus an exponential margin of mean 6 per pixel.  About 73% of the
+    pixels have p >= 0.99 and 16% p == 1.0 exactly (float32, 19 classes),
+    so 44% fall in bin 2047 of 2048."""
     b, c, h, w = shape
     rng = np.random.default_rng(seed)
     x = rng.standard_normal(shape, dtype=np.float32)
-    shares = np.resize(np.asarray(CITYSCAPES_SHARES), c)
+    shares = np.resize(np.asarray(shares, dtype=np.float64), c)
     blocks = rng.choice(c, size=(b, -(-h // PEAK_BLOCK), -(-w // PEAK_BLOCK)), p=shares / shares.sum())
     cls = np.repeat(np.repeat(blocks, PEAK_BLOCK, 1), PEAK_BLOCK, 2)[:, None, :h, :w]
     margin = (6.0 + rng.exponential(6.0, size=(b, 1, h, w))).astype(np.float32)
     np.put_along_axis(x, cls, np.take_along_axis(x, cls, 1) + margin, 1)
     return x
+
+
+def oxford_shares() -> tuple:
+    """Cityscapes' pixel shares mapped through the Cityscapes -> 9-class
+    table of the Oxford scenario (the classes it drops left out)."""
+    from hiast_tpu_torch.data.remap import CITYSCAPES_TO_9_ID_MAP
+
+    shares = [0.0] * OX_C
+    for k, share in enumerate(CITYSCAPES_SHARES):
+        if CITYSCAPES_TO_9_ID_MAP[k] != 255:
+            shares[CITYSCAPES_TO_9_ID_MAP[k]] += share
+    return tuple(shares)
 
 
 def check(cond: bool, what: str) -> None:
@@ -317,33 +370,39 @@ def bound_ms(bytes_moved: float, ops: float) -> tuple[float, str]:
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_phase(torch):
+def kernel_phase(torch, c: int = C, hw_full: tuple = (H, W), hw_low: tuple = (LOW_H, LOW_W),
+                 shares=CITYSCAPES_SHARES, timed: bool = True):
     """ias_hist and ias_select against their plain versions on the Gaussian
-    and the peaked inputs; returns their JSON rows' numbers, timed on the
-    peaked input (a trained model's confidences)."""
+    and the peaked inputs at ``c`` classes, [B, c, *hw_full] (and
+    [B, c, *hw_low] for the histogram); returns their JSON rows' numbers,
+    timed (when ``timed``) on the peaked input (a trained model's
+    confidences)."""
     from hiast_tpu_torch.ops.cuda.select_kernel import (
         ias_hist, ias_hist_plain, ias_select, ias_select_plain,
     )
     from hiast_tpu_torch.pseudo import policies as P
 
     dev = torch.device("cuda")
-    hw, n = H * W, B * H * W
-    low_n = B * LOW_H * LOW_W
+    (h, w), (low_h, low_w) = hw_full, hw_low
+    hw, n = h * w, B * h * w
+    low_n = B * low_h * low_w
+    tag = f"C={c}, {h}x{w}"
     results = {
         "ias_hist": dict(max_abs_err=0.0, bound_by="bytes"),
         "ias_select": dict(max_abs_err=0.0, bound_by="bytes"),
     }
     for kind, make in (("gaussian", gaussian_logits), ("peaked", peaked_logits)):
-        full = torch.from_numpy(make((B, C, H, W), 0)).to(dev)
-        low = torch.from_numpy(make((B, C, LOW_H, LOW_W), 1)).to(dev)
+        args = (shares,) if make is peaked_logits else ()
+        full = torch.from_numpy(make((B, c, h, w), 0, *args)).to(dev)
+        low = torch.from_numpy(make((B, c, low_h, low_w), 1, *args)).to(dev)
         maxprob, pred = P.confidences(full)
         bins = torch.clamp((maxprob * NUM_BINS).long(), 0, NUM_BINS - 1)
-        print(f"IAS input [{kind}]: p >= 0.99 {float((maxprob >= 0.99).float().mean()):.4f}, "
+        print(f"IAS input [{kind}, {tag}]: p >= 0.99 {float((maxprob >= 0.99).float().mean()):.4f}, "
               f"p == 1.0 {float((maxprob == 1.0).float().mean()):.4f}, "
               f"bin {NUM_BINS - 1} {float((bins == NUM_BINS - 1).float().mean()):.4f}")
         state = P.IASState(
-            torch.full((C,), 0.9, dtype=torch.float32, device=dev),
-            torch.zeros(C, dtype=torch.float32, device=dev),
+            torch.full((c,), 0.9, dtype=torch.float32, device=dev),
+            torch.zeros(c, dtype=torch.float32, device=dev),
         )
 
         # -- ias_hist -----------------------------------------------------
@@ -355,7 +414,7 @@ def kernel_phase(torch):
             want = ias_hist_plain(logits, nvalid, NUM_BINS)
             torch.cuda.synchronize()
             check(torch.equal(got.sum(1), want.sum(1)), f"ias_hist {kind} {label}: row sums differ")
-            check(float(got.sum()) == min(nvalid, logits.numel() // C), f"ias_hist {kind} {label}: total")
+            check(float(got.sum()) == min(nvalid, logits.numel() // c), f"ias_hist {kind} {label}: total")
             l1 = float((got - want).abs().sum())
             check(l1 <= max(2.0, 1e-4 * nvalid), f"ias_hist {kind} {label}: bin L1 {l1}")
             thr_got = P.ias_update(state, got, 0.2, 0.9, 8.0)
@@ -364,7 +423,7 @@ def kernel_phase(torch):
             check(thr_diff <= 1.0 / NUM_BINS, f"ias_hist {kind} {label}: threshold diff {thr_diff}")
             err = float((got - want).abs().max())
             results["ias_hist"]["max_abs_err"] = max(results["ias_hist"]["max_abs_err"], err)
-            print(f"ias_hist   [{kind}, {label}] nvalid={nvalid} row sums exact, bin L1={l1:g} "
+            print(f"ias_hist   [{kind}, {tag}, {label}] nvalid={nvalid} row sums exact, bin L1={l1:g} "
                   f"threshold diff={thr_diff:g}")
             if label == "full":
                 thr_main = thr_want
@@ -391,7 +450,7 @@ def kernel_phase(torch):
             # the plain version's float32 index_add_ drifts over ~1e6 terms a
             # class; hold both to its confidences summed in float64
             sel_p = lab_p != 255
-            exact = torch.zeros(C, dtype=torch.float64, device=dev).index_add_(
+            exact = torch.zeros(c, dtype=torch.float64, device=dev).index_add_(
                 0, pred[sel_p], maxprob[sel_p].double())
             err = float((sums.double() - exact).abs().max())
             rel = float(((sums.double() - exact).abs() / exact.clamp(min=1)).max())
@@ -399,23 +458,25 @@ def kernel_phase(torch):
             check(bool(((sums.double() - exact).abs() <= 1e-5 * exact + n_diff).all()),
                   f"ias_select {kind} {label}: sums off by {err} (relative {rel})")
             results["ias_select"]["max_abs_err"] = max(results["ias_select"]["max_abs_err"], err)
-            print(f"ias_select [{kind}, {label}] nvalid={nvalid} labels differing={n_diff} count diff={cnt_diff} "
+            print(f"ias_select [{kind}, {tag}, {label}] nvalid={nvalid} labels differing={n_diff} count diff={cnt_diff} "
                   f"sums against float64: max err {err:g}, relative {rel:.3g} (plain float32 sums {plain_rel:.3g}); "
                   f"a second call gives the same bits")
 
+        if not timed:
+            continue
         # -- times (bytes bound: the logits read once, the outputs written once)
         hist_ms = device_ms(torch, lambda: ias_hist(full, n, NUM_BINS))
         hist_plain = device_ms(torch, lambda: ias_hist_plain(full, n, NUM_BINS))
-        hist_bound, _ = bound_ms(n * C * 4 + C * NUM_BINS * 4, n * C * 4.0)
+        hist_bound, _ = bound_ms(n * c * 4 + c * NUM_BINS * 4, n * c * 4.0)
         low_ms = device_ms(torch, lambda: ias_hist(low, low_n, NUM_BINS))
-        low_bound, _ = bound_ms(low_n * C * 4 + C * NUM_BINS * 4, low_n * C * 4.0)
+        low_bound, _ = bound_ms(low_n * c * 4 + c * NUM_BINS * 4, low_n * c * 4.0)
         sel_ms = device_ms(torch, lambda: ias_select(full, thr_main, n))
         sel_plain = device_ms(torch, lambda: ias_select_plain(full, thr_main, n))
-        sel_bound, _ = bound_ms(n * C * 4 + C * 4 + n + B * C * 4 + C * 4, n * C * 4.0)
-        print(f"ias_hist   [{kind}, full] {hist_ms:.4f} ms, plain {hist_plain:.4f} ms, bound {hist_bound:.4f} ms "
+        sel_bound, _ = bound_ms(n * c * 4 + c * 4 + n + B * c * 4 + c * 4, n * c * 4.0)
+        print(f"ias_hist   [{kind}, {tag}, full] {hist_ms:.4f} ms, plain {hist_plain:.4f} ms, bound {hist_bound:.4f} ms "
               f"(bytes; {hist_bound / hist_ms:.3f} of it)")
-        print(f"ias_hist   [{kind}, low]  {low_ms:.4f} ms, bound {low_bound:.4f} ms")
-        print(f"ias_select [{kind}, full] {sel_ms:.4f} ms, plain {sel_plain:.4f} ms, bound {sel_bound:.4f} ms "
+        print(f"ias_hist   [{kind}, C={c}, {low_h}x{low_w}, low]  {low_ms:.4f} ms, bound {low_bound:.4f} ms")
+        print(f"ias_select [{kind}, {tag}, full] {sel_ms:.4f} ms, plain {sel_plain:.4f} ms, bound {sel_bound:.4f} ms "
               f"(bytes; {sel_bound / sel_ms:.3f} of it)")
         if kind == "peaked":
             results["ias_hist"].update(ms=hist_ms, plain_ms=hist_plain, bound_ms=hist_bound)
@@ -447,11 +508,13 @@ def write_target_set(root: str) -> tuple[str, str]:
     return json_path, os.path.join(root, "city")
 
 
-def check_artifacts(save_dir: str, names: list | None = None, thresholds: str = "ias") -> None:
+def check_artifacts(save_dir: str, names: list | None = None, thresholds: str = "ias",
+                    shape: tuple = (H, W), c: int = C) -> None:
     """The six artifacts of a generation into ``save_dir``: label PNGs named
-    ``names`` (default: the 4 ``t_<i>`` images) of HxW; ``thresholds`` is
-    "ias" (each in (0, 0.999]), "cbst" (in (0, 1], 1 for a class never
-    predicted) or None (NT: no class_threshold.npy)."""
+    ``names`` (default: the 4 ``t_<i>`` images) of ``shape`` over ``c``
+    classes; ``thresholds`` is "ias" (each in (0, 0.999]), "cbst" (in (0,
+    1], 1 for a class never predicted) or None (NT: no
+    class_threshold.npy)."""
     from hiast_tpu_torch.data.png import decode_png_file
 
     names = names or [f"t_{i}_pseudo_label.png" for i in range(N_IMAGES)]
@@ -459,8 +522,8 @@ def check_artifacts(save_dir: str, names: list | None = None, thresholds: str = 
     check(found == sorted(names), f"label files {found}")
     for name in found:
         lbl = decode_png_file(os.path.join(save_dir, name))
-        check(lbl is not None and lbl.shape == (H, W) and lbl.dtype == np.uint8, f"{name} shape")
-        check(bool(np.all((lbl < C) | (lbl == 255))), f"{name} values")
+        check(lbl is not None and lbl.shape == tuple(shape) and lbl.dtype == np.uint8, f"{name} shape")
+        check(bool(np.all((lbl < c) | (lbl == 255))), f"{name} values")
     stats = os.path.dirname(save_dir)
     thr_path = os.path.join(stats, "class_threshold.npy")
     if thresholds is None:
@@ -468,12 +531,12 @@ def check_artifacts(save_dir: str, names: list | None = None, thresholds: str = 
     else:
         thr = np.load(thr_path)
         top = 0.999 if thresholds == "ias" else 1.0
-        check(thr.shape == (C,) and np.all(np.isfinite(thr)) and np.all((thr > 0) & (thr <= top)),
+        check(thr.shape == (c,) and np.all(np.isfinite(thr)) and np.all((thr > 0) & (thr <= top)),
               f"class_threshold {thr}")
     statics = np.load(os.path.join(stats, "statics_class.npy"))
-    check(statics.shape == (C,) and statics.min() >= 0, "statics_class")
+    check(statics.shape == (c,) and statics.min() >= 0, "statics_class")
     cmp = np.load(os.path.join(stats, "class_mean_probabilities.npy"))
-    check(cmp.shape == (C,) and np.all(np.isfinite(cmp)) and np.all((cmp >= 0) & (cmp <= 1)),
+    check(cmp.shape == (c,) and np.all(np.isfinite(cmp)) and np.all((cmp >= 0) & (cmp <= 1)),
           "class_mean_probabilities")
     with open(os.path.join(stats, "sample_class_stats.json")) as f:
         sample_stats = json.load(f)
@@ -481,7 +544,7 @@ def check_artifacts(save_dir: str, names: list | None = None, thresholds: str = 
     check(sum(v for s in sample_stats for k, v in s.items() if k != "file") == int(statics.sum()),
           "sample_class_stats.json totals")
     with open(os.path.join(stats, "samples_with_class.json")) as f:
-        check(sorted(json.load(f)) == sorted(str(c) for c in range(C)), "samples_with_class.json")
+        check(sorted(json.load(f)) == sorted(str(k) for k in range(c)), "samples_with_class.json")
 
 
 def generation_run(torch, work: str, tag: str, json_path: str, image_dir: str,
@@ -1261,36 +1324,45 @@ def rewrite_config(text: str, paths: dict, work_dir: str | None = None, total_it
     return "\n".join(out) + "\n"
 
 
+def write_shipped_config(out_dir: str, name: str, paths: dict, work_dir: str | None = None,
+                         total_iter: int | None = None) -> str:
+    """The port's shipped config ``name`` written to ``out_dir`` with the
+    data paths of the sections in ``paths``, the work dir and the schedule
+    (``total_iter``, validation at the last) changed, each where given; held,
+    as the port's reader reads it, against the shipped file with those keys
+    set.  Returns its path."""
+    from hiast_tpu_torch.config import load_config
+
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(PORT_CONFIGS, name)) as f:
+        text = rewrite_config(f.read(), paths, work_dir, total_iter)
+    path = os.path.join(out_dir, name)
+    with open(path, "w") as f:
+        f.write(text)
+    overrides = []
+    for section, (json_path, image_dir) in paths.items():
+        overrides += [f"dataset.{section}.json_path", json_path, f"dataset.{section}.image_dir", image_dir]
+    if work_dir is not None:
+        overrides += ["work_dir", work_dir]
+    if total_iter is not None:
+        overrides += ["train.total_iter", str(total_iter), "train.iter_val", str(total_iter)]
+    got = load_config(path).to_dict()
+    want = load_config(os.path.join(PORT_CONFIGS, name), overrides=overrides).to_dict()
+    check(got == want, f"{name}: the written YAML reads as the shipped file with {overrides[::2]} set")
+    return path
+
+
 def write_round_configs(work: str, target: tuple, val: tuple) -> str:
     """The round-driver phase's configs dir: sl_1.yaml and sl_2.yaml are the
     port's shipped files with the data paths, the work dir and the schedule
     (ROUND_ITERS, validation at the last) changed, hiast_setting.yaml and
-    validate.yaml (its val paths changed) beside them.  Each is held, as the
-    port's reader reads it, against the shipped file with those keys set."""
-    from hiast_tpu_torch.config import load_config
-
+    validate.yaml (its val paths changed) beside them."""
     configs = os.path.join(work, "configs")
-    os.makedirs(configs)
-    paths = {"target": target, "val": val}
-    for name in ("sl_1.yaml", "sl_2.yaml", "hiast_setting.yaml", "validate.yaml"):
-        with open(os.path.join(PORT_CONFIGS, name)) as f:
-            text = f.read()
-        if name.startswith("sl_"):
-            text = rewrite_config(text, paths, os.path.join(work, "rounds"), ROUND_ITERS)
-        elif name == "validate.yaml":
-            text = rewrite_config(text, {"val": val})
-        with open(os.path.join(configs, name), "w") as f:
-            f.write(text)
-        overrides = []
-        for section, (json_path, image_dir) in paths.items():
-            if name.startswith("sl_") or (name == "validate.yaml" and section == "val"):
-                overrides += [f"dataset.{section}.json_path", json_path, f"dataset.{section}.image_dir", image_dir]
-        if name.startswith("sl_"):
-            overrides += ["work_dir", os.path.join(work, "rounds"), "train.total_iter", str(ROUND_ITERS),
-                          "train.iter_val", str(ROUND_ITERS)]
-        got = load_config(os.path.join(configs, name)).to_dict()
-        want = load_config(os.path.join(PORT_CONFIGS, name), overrides=overrides).to_dict()
-        check(got == want, f"{name}: the written YAML reads as the shipped file with {overrides[::2]} set")
+    for name in ("sl_1.yaml", "sl_2.yaml"):
+        write_shipped_config(configs, name, {"target": target, "val": val}, os.path.join(work, "rounds"),
+                             ROUND_ITERS)
+    write_shipped_config(configs, "hiast_setting.yaml", {})
+    write_shipped_config(configs, "validate.yaml", {"val": val})
     return configs
 
 
@@ -1492,6 +1564,381 @@ def policy_phase(torch, work: str, pth: str) -> None:
         cli.make_forward = make_forward
 
 
+GTA_H, GTA_W = 1052, 1914  # GTA5's frames
+SYN_H, SYN_W = 760, 1280  # SYNTHIA-RAND-CITYSCAPES frames
+OXF_H, OXF_W = 960, 1280  # Oxford RobotCar frames
+WARMUP_ITERS, SOURCE_ONLY_ITERS, OXFORD_ITERS = 8, 4, 4
+N_SYNTHIA_IMAGES = 6
+
+
+def synthetic_image(rng: np.random.Generator, h: int, w: int, i: int) -> np.ndarray:
+    """Smooth colour fields plus noise: deflates like a photo, not like noise."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = np.stack([(xx * (i + 2) // 9) % 256, (yy * 5 // (i + 3)) % 256, (xx + 2 * yy) // 11 % 256], -1)
+    return (base + rng.integers(0, 32, size=(h, w, 3))).clip(0, 255).astype(np.uint8)
+
+
+def block_ids(ids, h: int, w: int, i: int, block: int = 96) -> np.ndarray:
+    """A label map of ``block``-pixel squares cycling through ``ids``."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    ids = np.asarray(ids)
+    return ids[(xx // block + 2 * (yy // block) + i) % len(ids)]
+
+
+def write_manifest(root: str, name: str, entries: list) -> str:
+    path = os.path.join(root, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(entries, f)
+    return path
+
+
+def write_gta_set(root: str) -> tuple[str, str]:
+    """N_TRAIN_IMAGES GTA5-sized frames (1052x1914) with 8-bit palette label
+    PNGs in GTA5 label ids (the unlabelled id 0 among them)."""
+    from hiast_tpu_torch.data.png import write_png
+    from hiast_tpu_torch.data.remap import GTAV_ID_MAP
+
+    rng = np.random.default_rng(21)
+    img_dir = os.path.join(root, "gta", "images")
+    os.makedirs(img_dir)
+    palette = rng.integers(0, 256, size=(256, 3)).astype(np.uint8)
+    ids = sorted(GTAV_ID_MAP) + [0]
+    entries = []
+    for i in range(N_TRAIN_IMAGES):
+        write_png(os.path.join(img_dir, f"g_{i}.png"), synthetic_image(rng, GTA_H, GTA_W, i))
+        write_png(os.path.join(img_dir, f"g_{i}_lbl.png"), block_ids(ids, GTA_H, GTA_W, i).astype(np.uint8),
+                  palette=palette)
+        entries.append({"image_name": f"images/g_{i}.png", "mask_name": f"images/g_{i}_lbl.png"})
+    return write_manifest(root, "gta", entries), os.path.join(root, "gta")
+
+
+def write_synthia_set(root: str) -> tuple[str, str]:
+    """N_SYNTHIA_IMAGES SYNTHIA frames (760x1280) with 16-bit RGB label PNGs:
+    the class id in channel 0, instance-like values in the others."""
+    from hiast_tpu_torch.data.png import write_png
+    from hiast_tpu_torch.data.remap import SYNTHIA_ID_MAP
+
+    rng = np.random.default_rng(22)
+    img_dir = os.path.join(root, "synthia", "images")
+    os.makedirs(img_dir)
+    entries = []
+    for i in range(N_SYNTHIA_IMAGES):
+        lbl = rng.integers(0, 65536, size=(SYN_H, SYN_W, 3)).astype(np.uint16)
+        lbl[..., 0] = block_ids(sorted(SYNTHIA_ID_MAP) + [0], SYN_H, SYN_W, i)
+        write_png(os.path.join(img_dir, f"s_{i}.png"), synthetic_image(rng, SYN_H, SYN_W, i))
+        write_png(os.path.join(img_dir, f"s_{i}_lbl.png"), lbl)
+        entries.append({"image_name": f"images/s_{i}.png", "mask_name": f"images/s_{i}_lbl.png"})
+    return write_manifest(root, "synthia", entries), os.path.join(root, "synthia")
+
+
+def write_oxford_set(root: str) -> tuple[tuple, tuple]:
+    """N_TRAIN_IMAGES Oxford RobotCar frames (960x1280) in the unlabelled
+    train split (label paths not ending in .png) and N_IMAGES val frames with
+    label PNGs in Oxford ids: 8-bit gray, RGB and RGBA, and one 16-bit gray
+    (the id in the low byte, as PIL reads it).  Returns ((train manifest,
+    dir), (val manifest, dir))."""
+    from hiast_tpu_torch.data.png import write_png
+    from hiast_tpu_torch.data.remap import OXFORD_ID_MAP
+
+    rng = np.random.default_rng(23)
+    img_dir = os.path.join(root, "oxford", "images")
+    os.makedirs(img_dir)
+    train, val = [], []
+    for i in range(N_TRAIN_IMAGES):
+        write_png(os.path.join(img_dir, f"o_{i}.png"), synthetic_image(rng, OXF_H, OXF_W, i))
+        train.append({"image_name": f"images/o_{i}.png", "mask_name": f"images/o_{i}.png.nolabel"})
+    ids = sorted(OXFORD_ID_MAP) + [0]
+    for i in range(N_IMAGES):
+        raw = block_ids(ids, OXF_H, OXF_W, i, block=128)
+        noise = rng.integers(0, 256, size=(OXF_H, OXF_W, 3))
+        lbl = (raw.astype(np.uint8), np.concatenate([raw[..., None], noise[..., :2]], -1).astype(np.uint8),
+               np.concatenate([raw[..., None], noise], -1).astype(np.uint8),
+               (raw + 256 * noise[..., 0]).astype(np.uint16))[i % 4]
+        write_png(os.path.join(img_dir, f"ov_{i}.png"), synthetic_image(rng, OXF_H, OXF_W, i + 7))
+        write_png(os.path.join(img_dir, f"ov_{i}_lbl.png"), lbl)
+        val.append({"image_name": f"images/ov_{i}.png", "mask_name": f"images/ov_{i}_lbl.png"})
+    oxford = os.path.join(root, "oxford")
+    return (write_manifest(root, "oxford_train", train), oxford), (write_manifest(root, "oxford_val", val), oxford)
+
+
+def adversarial_step_flops(torch, trainer) -> float:
+    """FLOPs of one adversarial warmup step at batch 6 and 512x1024
+    (FlopCounterMode over the step's work: the trunk's two train forwards
+    and their backward, the discriminator's three forwards and its two
+    backward paths, the upsamples and the losses; the updates left out).
+    DeepLab and the discriminator have no grouped convolution, so the
+    counter's convolution backward is taken as it counts it: the input
+    and weight gradients that each backward computes."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from hiast_tpu_torch.selftrain.steps import _total_loss
+
+    seg = trainer.segmentor
+    img = torch.zeros(TRAIN_B, 3, TRAIN_H, TRAIN_W, device="cuda")
+    lbl = torch.zeros(TRAIN_B, TRAIN_H, TRAIN_W, dtype=torch.long, device="cuda")
+    seg.module.train()
+    with FlopCounterMode(display=False) as flops:
+        s_logits = seg.forward(img, torch.bfloat16)["logits"]
+        t_logits = seg.forward(img, torch.bfloat16)["logits"]
+        seg.discriminator.requires_grad_(False)
+        losses = seg.compute_g_loss(s_logits, t_logits, lbl, torch.bfloat16)
+        seg.discriminator.requires_grad_(True)
+        _total_loss(losses).backward()
+        seg.compute_d_loss(s_logits, t_logits, torch.bfloat16)["D_loss"].backward()
+    seg.module.zero_grad(set_to_none=True)
+    seg.discriminator.zero_grad(set_to_none=True)
+    return flops.get_total_flops()
+
+
+def warmup_phase(torch, work: str, pth: str, profile: bool) -> dict:
+    """The adversarial warmup (GTA5 -> Cityscapes) through ``cli.train.main``
+    with the port's shipped ``warmup_adversarial.yaml`` read from YAML (only
+    the data paths, the work dir and the schedule changed), full-width
+    R101 from the seeded ``pth`` (``train.init_from``), batch 6 of 512x1024
+    'MS' crops; returns its ``model_last.pth`` and rates."""
+    from hiast_tpu_torch.cli import train as cli_train
+    from hiast_tpu_torch.models.deeplab_v2 import FCDiscriminator
+    from hiast_tpu_torch.utils.checkpoint import load_train_state
+
+    t0 = time.perf_counter()
+    gta = write_gta_set(work)
+    print(f"wrote {N_TRAIN_IMAGES} GTA5-sized source images of {GTA_H}x{GTA_W} with palette labels in "
+          f"{time.perf_counter() - t0:.2f} s")
+    run_dir = os.path.join(work, "warmup")
+    paths = {"source": gta, "target": (os.path.join(work, "hiast.json"), os.path.join(work, "hiast")),
+             "val": (os.path.join(work, "val.json"), os.path.join(work, "val"))}
+    config = write_shipped_config(os.path.join(work, "configs_warmup"), "warmup_adversarial.yaml", paths, run_dir,
+                                  WARMUP_ITERS)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer = cli_train.main(["--device", "cuda", "--config_file", config, "train.init_from", pth])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(type(trainer).__name__ == "AdversarialWarmupTrainer", f"warmup trainer {type(trainer).__name__}")
+    check(all(v == 0 for v in counts.values()), f"the warmup launched kernels: {counts}")
+    losses = trainer.loss_log
+    check(len(losses) == WARMUP_ITERS and all(np.isfinite(v) for step in losses for v in step.values())
+          and sorted(losses[0]) == ["D_loss", "adv_loss", "source_seg_loss"], f"warmup losses {losses}")
+    init = FCDiscriminator(C)
+    init.init_weights(torch.Generator().manual_seed(trainer.cfg.train.random_seed + 7))
+    disc = trainer.segmentor.discriminator
+    moved = min(float((p.detach().cpu() - q.detach()).abs().max())
+                for p, q in zip(disc.parameters(), init.parameters()))
+    check(moved > 0, "a discriminator tensor did not move")
+    ckpt = os.path.join(run_dir, "checkpoints", "model_last.pth")
+    state = load_train_state(ckpt)
+    check(state is not None and state["step"] == WARMUP_ITERS and state["d_lr_schedule_step"] == WARMUP_ITERS
+          and all(torch.equal(state["discriminator"][k], v.cpu()) for k, v in disc.state_dict().items()),
+          f"{ckpt}: the discriminator's state at step {WARMUP_ITERS}")
+    times = trainer.iter_times
+    run_s_per_iter = (times[-1] - times[1]) / (len(times) - 2)
+    for i, step in enumerate(losses, 1):
+        print(f"warmup iter {i}: " + ", ".join(f"{k} {v:.6f}" for k, v in step.items())
+              + (f", {times[i - 1] - times[i - 2]:.3f} s" if i > 1 else ""))
+
+    steps = trainer_steps(torch, trainer)
+    steps(4)
+    s_per_iter = steps(8) / 8
+    idle = profile_run(torch, "adversarial warmup, 3 steps", lambda: steps(3), table=profile)
+    flops = adversarial_step_flops(torch, trainer)
+    mfu = flops / s_per_iter / BF16_FLOPS_PER_S
+    t0 = time.perf_counter()
+    trainer.s_dataset.get_item(0, np.random.default_rng(0))
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    print(f"adversarial warmup [{WARMUP_ITERS} iterations, batch {TRAIN_B}, {TRAIN_H}x{TRAIN_W}, R101 + "
+          f"FCDiscriminator]: main {wall:.3f} s, iterations 3-{WARMUP_ITERS} {run_s_per_iter:.4f} s/iter; steady "
+          f"(8 steps after 4 more) {s_per_iter:.4f} s/iter ({TRAIN_B / s_per_iter:.3f} source + target "
+          f"images/s), peak memory {peak_gb:.3f} GB, {flops / 1e12:.3f} TFLOP per step, MFU {mfu:.4f} of "
+          f"989 TFLOP/s; device idle share of 3 profiled steps at least {idle:.3f}; discriminator moved "
+          f"{moved:.4g} at least; host: one GTA5 sample (decode, label, MS) {host_ms:.2f} ms; on {card_line()}")
+    del trainer, disc
+    torch.cuda.empty_cache()
+    return {"ckpt": ckpt, "s_per_iter": s_per_iter, "peak_gb": peak_gb, "mfu": mfu, "idle": idle,
+            "flops": flops}
+
+
+def source_only_phase(torch, work: str, pth: str) -> float:
+    """SYNTHIA source-only warmup: ``SourceOnlyTrainer`` through
+    ``cli.train.main`` for SOURCE_ONLY_ITERS iterations on 760x1280 frames
+    with 16-bit RGB labels, full-width R101 from ``pth``, batch 6 of
+    512x1024 'MS' crops; returns s/iter over its iterations 2-4."""
+    from hiast_tpu_torch.cli import train as cli_train
+    from hiast_tpu_torch.utils.checkpoint import load_step
+
+    json_path, image_dir = write_synthia_set(work)
+    run_dir = os.path.join(work, "synthia_source_only")
+    argv = [
+        "--device", "cuda", "--work_dir", run_dir, "trainer", "SourceOnlyTrainer",
+        "model.type", "SourceOnlySegmentor", "model.is_freeze_bn", "False", *R101_ARGV,
+        "dataset.num_classes", str(C), "dataset.source.type", "SYNTHIA", "dataset.source.json_path", json_path,
+        "dataset.source.image_dir", image_dir, "dataset.source.aug_type", "['MS']",
+        "dataset.val.type", "Cityscapes", "dataset.val.json_path", os.path.join(work, "val.json"),
+        "dataset.val.image_dir", os.path.join(work, "val"),
+        "dataset.crop_size", f"[{TRAIN_H}, {TRAIN_W}]", "train.batch_size", str(TRAIN_B),
+        "train.total_iter", str(SOURCE_ONLY_ITERS), "train.iter_val", str(10 * SOURCE_ONLY_ITERS),
+        "train.init_from", pth,
+    ]
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer = cli_train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    check(all(v == 0 for v in counts.values()), f"the source-only run launched kernels: {counts}")
+    losses = trainer.loss_log
+    check(len(losses) == SOURCE_ONLY_ITERS and all(sorted(s) == ["seg_loss"] and np.isfinite(s["seg_loss"])
+                                                   for s in losses), f"source-only losses {losses}")
+    check(load_step(os.path.join(run_dir, "checkpoints")) == SOURCE_ONLY_ITERS,
+          f"source-only model_last.pth at step {SOURCE_ONLY_ITERS}")
+    times = trainer.iter_times
+    s_per_iter = (times[-1] - times[0]) / (len(times) - 1)
+    print(f"source-only warmup [SYNTHIA, {N_SYNTHIA_IMAGES} images of {SYN_H}x{SYN_W} with 16-bit RGB labels, "
+          f"{SOURCE_ONLY_ITERS} iterations, batch {TRAIN_B}]: seg_loss "
+          + ", ".join(f"{s['seg_loss']:.5f}" for s in losses)
+          + f"; main {wall:.3f} s, iterations 2-{SOURCE_ONLY_ITERS} {s_per_iter:.4f} s/iter")
+    del trainer
+    torch.cuda.empty_cache()
+    return s_per_iter
+
+
+def handoff_phase(torch, work: str, warm: str, configs: str) -> dict:
+    """One HIAST round of ``cli.run_rounds`` from the adversarial warmup's
+    ``model_last.pth`` (student and teacher), phase 9's configs and 12
+    target images; returns the round's launch counts and times."""
+    from hiast_tpu_torch.cli import run_rounds
+    from hiast_tpu_torch.cli import train as cli_train
+    from hiast_tpu_torch.utils.checkpoint import load_step
+
+    rounds_dir = os.path.join(work, "handoff")
+    train_main, record = cli_train.main, {}
+
+    def train(argv):
+        trainer = train_main(argv)
+        record.update(losses=trainer.loss_log, iter_times=trainer.iter_times)
+        return trainer
+
+    reset_counts()
+    cli_train.main = train
+    try:
+        t0 = time.perf_counter()
+        run_rounds.main(["--work_dir", rounds_dir, "--warmup_ckpt", warm, "--warmup_pseudo_ckpt", warm,
+                         "--configs_dir", configs, "--rounds", "1"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        cli_train.main = train_main
+    counts = read_counts()
+    n_batches = -(-N_TRAIN_IMAGES // B)
+    check(counts == {"ias_hist": n_batches, "ias_select": n_batches, "sra_attention": 0, "sra_attention_bwd": 0},
+          f"handoff round launch counts {counts}")
+    round_dir = os.path.join(rounds_dir, "sl_1")
+    check_artifacts(os.path.join(round_dir, "pseudo_label", "gray_label"),
+                    [f"hiast_{i}_pseudo_label.png" for i in range(N_TRAIN_IMAGES)])
+    check(load_step(os.path.join(round_dir, "checkpoints")) == ROUND_ITERS, "handoff round: model_last.pth step")
+    check(os.path.exists(os.path.join(round_dir, "checkpoints", "ema_model_last.pth")), "handoff round: EMA")
+    losses = record["losses"]
+    check(len(losses) == ROUND_ITERS and all(np.isfinite(v) for step in losses for v in step.values()),
+          f"handoff round losses {losses}")
+    warm_trunk = torch.load(warm, map_location="cpu", weights_only=True, mmap=True)["state_dict"]
+    student = torch.load(os.path.join(round_dir, "checkpoints", "model_last.pth"), map_location="cpu",
+                         weights_only=True, mmap=True)["state_dict"]
+    moved = max(float((student[k].float() - warm_trunk[k].float()).abs().max()) for k in warm_trunk
+                if warm_trunk[k].is_floating_point() and "running_" not in k)
+    check(0 < moved, "the handoff round's student did not move from the warmup's")
+    times = record["iter_times"]
+    s_per_iter = (times[-1] - times[1]) / (len(times) - 2)
+    print(f"handoff [run_rounds --rounds 1 from the warmup's model_last.pth]: {wall:.3f} s, launches {counts}, "
+          f"training iterations 3-{ROUND_ITERS} {s_per_iter:.4f} s/iter, the student's parameters moved "
+          f"{moved:.4g} (max |diff|) from the warmup's trunk")
+    return {"counts": counts, "wall": wall, "s_per_iter": s_per_iter}
+
+
+def oxford_phase(torch, work: str) -> dict:
+    """The Cityscapes -> Oxford round at 9 classes through the CLIs with the
+    port's shipped ``oxford_sl_1.yaml`` read from YAML (data paths, work
+    dir and schedule changed): IAS generation from a seeded 9-class R101
+    ``.pth`` over 12 unlabelled 960x1280 frames at 768x1280 (B1/B2 at C =
+    9), OXFORD_ITERS iterations of ``SelfTrainingTrainer`` on 'OMS'
+    768x1024 crops, then ``cli.validate`` with the 9-class protocol."""
+    from hiast_tpu_torch.cli import generate_pseudo_labels as cli_generate
+    from hiast_tpu_torch.cli import train as cli_train
+    from hiast_tpu_torch.cli import validate as cli_validate
+    from hiast_tpu_torch.models.deeplab_v2 import DeepLabV2
+    from hiast_tpu_torch.utils.checkpoint import load_train_state
+
+    t0 = time.perf_counter()
+    train_set, val_set = write_oxford_set(work)
+    print(f"wrote {N_TRAIN_IMAGES} Oxford train frames of {OXF_H}x{OXF_W} (unlabelled split) and {N_IMAGES} val "
+          f"frames with 8- and 16-bit labels in {time.perf_counter() - t0:.2f} s")
+    pth = os.path.join(work, "deeplab_r101_c9.pth")
+    model = DeepLabV2(num_classes=OX_C)
+    model.init_weights(torch.Generator().manual_seed(1))
+    torch.save(model.state_dict(), pth)
+    del model
+    run_dir = os.path.join(work, "oxford_sl_1")
+    paths = {"source": (os.path.join(work, "hiast.json"), os.path.join(work, "hiast")),
+             "target": train_set, "val": val_set}
+    config = write_shipped_config(os.path.join(work, "configs_oxford"), "oxford_sl_1.yaml", paths, run_dir,
+                                  OXFORD_ITERS)
+    save_dir = os.path.join(run_dir, "pseudo_label", "gray_label")
+    reset_counts()
+    t0 = time.perf_counter()
+    generator = cli_generate.main(["--device", "cuda", "--config_file", config, "--pseudo_resume_from", pth,
+                                   "--pseudo_save_dir", save_dir])
+    torch.cuda.synchronize()
+    gen_wall = time.perf_counter() - t0
+    gen_counts = read_counts()
+    n_batches = -(-N_TRAIN_IMAGES // B)
+    check(gen_counts == {"ias_hist": n_batches, "ias_select": n_batches, "sra_attention": 0,
+                         "sra_attention_bwd": 0}, f"Oxford generation launch counts {gen_counts}")
+    check_artifacts(save_dir, [f"o_{i}_pseudo_label.png" for i in range(N_TRAIN_IMAGES)], shape=(OX_H, OX_W),
+                    c=OX_C)
+    gen_rate = N_TRAIN_IMAGES / generator.run_seconds
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = cli_train.main(["--device", "cuda", "--config_file", config, "--pseudo_save_dir", save_dir,
+                              "train.init_from", pth])
+    torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(v == 0 for v in counts.values()), f"Oxford training launched kernels: {counts}")
+    losses = trainer.loss_log
+    check(len(losses) == OXFORD_ITERS and all(np.isfinite(v) for step in losses for v in step.values())
+          and sorted(losses[0]) == ["ent_ignored_loss", "kld_confident_loss", "target_seg_loss"],
+          f"Oxford training losses {losses}")
+    check(tuple(trainer.t_dataset.get_item(0, np.random.default_rng(0))["images"].shape) == (768, 1024, 3),
+          "'OMS' crops of 768x1024")
+    ckpt = os.path.join(run_dir, "checkpoints", "model_last.pth")
+    check(load_train_state(ckpt)["step"] == OXFORD_ITERS, f"Oxford model_last.pth at step {OXFORD_ITERS}")
+    times = trainer.iter_times
+    s_per_iter = (times[-1] - times[1]) / (len(times) - 2)
+    del trainer
+    torch.cuda.empty_cache()
+
+    reset_counts()
+    result = cli_validate.main(["--device", "cuda", "--config_file", config, "--validate_resume_from", ckpt])
+    iou = np.asarray(result["iou"])
+    check(iou.shape == (OX_C,) and bool(np.all(np.isfinite(iou))) and 0.0 <= result["miou"] <= 1.0,
+          f"Oxford validation: {result}")
+    check(all(v == 0 for v in read_counts().values()), "Oxford validation launched kernels")
+    for i, step in enumerate(losses, 1):
+        print(f"oxford iter {i}: " + ", ".join(f"{k} {v:.5f}" for k, v in step.items()))
+    print(f"oxford round [9 classes]: generation {gen_wall:.3f} s (batch loop {generator.run_seconds:.3f} s, "
+          f"{gen_rate:.3f} images/s, launches {gen_counts}); training [batch {TRAIN_B}, 'OMS' 768x1024] "
+          f"{train_wall:.3f} s, iterations 3-{OXFORD_ITERS} {s_per_iter:.4f} s/iter, peak memory {peak_gb:.3f} GB; "
+          f"validation [{N_IMAGES} frames at {OX_H}x{OX_W}] miou {result['miou']:.4f}, batch loop "
+          f"{result['seconds']:.3f} s ({N_IMAGES / result['seconds']:.3f} images/s); on {card_line()}")
+    check("yaml" not in sys.modules and "PIL" not in sys.modules, "yaml or PIL was imported")
+    return {"counts": gen_counts, "gen_rate": gen_rate, "s_per_iter": s_per_iter, "peak_gb": peak_gb}
+
+
 def validation_run(torch, tag: str, pth: str, json_path: str, image_dir: str) -> float:
     """One validation through the CLI; returns seconds of its batch loop."""
     from hiast_tpu_torch.cli import validate as cli
@@ -1648,6 +2095,7 @@ def main(argv: list[str]) -> int:
         print("chip_smoke: no CUDA device visible to torch; nothing was run", file=sys.stderr)
         return 2
     profile = "--profile" in argv
+    started = time.perf_counter()
     card = card_line()
     clock_hz = sm_clock_hz()
     print(f"card: {card}")
@@ -1676,6 +2124,8 @@ def main(argv: list[str]) -> int:
     work = os.path.join(REPO, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     kernels = kernel_phase(torch)
+    kernels_c9 = kernel_phase(torch, OX_C, (OX_H, OX_W), (OX_LOW_H, OX_LOW_W), oxford_shares())
+    kernels_c7 = kernel_phase(torch, 7, (96, 160), (24, 40), timed=False)  # the generic instantiation
     deeplab_rate = slice_phase(torch, work, profile)
     print(f"generation warm: {deeplab_rate:.3f} images/s (batch {B}, {H}x{W}, R101, on {card})")
     kernels["sra_attention"] = attention_phase(torch, clock_hz)
@@ -1716,6 +2166,18 @@ def main(argv: list[str]) -> int:
         counts[name] = rounds["counts"][name]
     policy_phase(torch, work, pth)
 
+    warm = warmup_phase(torch, work, pth, profile)
+    print(f"adversarial warmup warm: {warm['s_per_iter']:.4f} s/iter, peak memory {warm['peak_gb']:.3f} GB, "
+          f"{warm['flops'] / 1e12:.3f} TFLOP a step, MFU {warm['mfu']:.4f}, device idle at least {warm['idle']:.3f} "
+          f"(batch {TRAIN_B} source + {TRAIN_B} target, {TRAIN_H}x{TRAIN_W}, DeepLab-v2/R101, on {card})")
+    synthia_s = source_only_phase(torch, work, pth)
+    print(f"source-only warmup (SYNTHIA): {synthia_s:.4f} s/iter (batch {TRAIN_B}, {TRAIN_H}x{TRAIN_W}, on {card})")
+    handoff = handoff_phase(torch, work, warm["ckpt"], os.path.join(work, "configs"))
+    oxford = oxford_phase(torch, work)
+    print(f"oxford round warm: generation {oxford['gen_rate']:.3f} images/s (batch {B}, {OX_H}x{OX_W}, 9 classes), "
+          f"training {oxford['s_per_iter']:.4f} s/iter (batch {TRAIN_B}, 768x1024), peak memory "
+          f"{oxford['peak_gb']:.3f} GB (on {card})")
+
     rows = []
     sources = {
         "ias_hist": ("hiast_tpu_torch/csrc/select_kernel.cu", "hiast_tpu/ops/pallas/select_kernel.py:172"),
@@ -1731,6 +2193,16 @@ def main(argv: list[str]) -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
         })
+        if name in ("ias_hist", "ias_select"):  # the other paths that launch them, and the 9-class times
+            c9 = kernels_c9[name]
+            rows[-1].update(
+                launches_by_path={"round_driver": counts[name], "handoff": handoff["counts"][name],
+                                  "oxford": oxford["counts"][name]},
+                c9={"shape": [B, OX_C, OX_H, OX_W], "ms": c9["ms"], "plain_ms": c9["plain_ms"],
+                    "bound_ms": c9["bound_ms"], "max_abs_err": c9["max_abs_err"]},
+                c7_max_abs_err=kernels_c7[name]["max_abs_err"],
+            )
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - started:.1f} s (the build included)")
     print(json.dumps({"kernels": rows}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

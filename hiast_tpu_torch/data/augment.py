@@ -11,11 +11,17 @@ cv2's by one intensity level; labels match it exactly.  ``GeometricAug``
 repeats the arithmetic of the JAX package's fused C++ crop+flip+resize
 (``native/hiast_host_ops.cc:crop_flip_resize_u8``) in numpy.
 
-'DACS' and 'FDA-*' come with the slices that use them.
+The source-domain augs: 'DACS' (``ResizeCrop``: resize, then a random
+crop) and 'FDA-*' (``FDA``: the low-frequency amplitude band of a random
+image of the other domain, by numpy FFT on the host), each drawing from the
+sample's ``rng`` in the JAX package's order.
 """
 from __future__ import annotations
 
+import json
+import os
 from dataclasses import dataclass
+from typing import Callable
 
 import numpy as np
 
@@ -117,6 +123,62 @@ class Resize:
         if lbl is not None and lbl.shape[:2] != (self.out_h, self.out_w):
             lbl = resize_nearest(lbl, self.out_h, self.out_w)
         return img, lbl
+
+
+@dataclass
+class ResizeCrop:
+    """'DACS': resize to (h, w), then a random (crop_h, crop_w) crop, its
+    corner drawn y0 then x0."""
+
+    h: int
+    w: int
+    crop_h: int
+    crop_w: int
+
+    def __call__(self, img, lbl, rng: np.random.Generator):
+        img, lbl = Resize(self.h, self.w)(img, lbl)
+        y0 = int(rng.integers(0, self.h - self.crop_h + 1))
+        x0 = int(rng.integers(0, self.w - self.crop_w + 1))
+        return (
+            np.ascontiguousarray(img[y0 : y0 + self.crop_h, x0 : x0 + self.crop_w]),
+            np.ascontiguousarray(lbl[y0 : y0 + self.crop_h, x0 : x0 + self.crop_w]),
+        )
+
+
+class FDA:
+    """Fourier Domain Adaptation (arXiv:2004.05498; JAX ``augment.FDA``):
+    the centred low-frequency amplitude band of each channel, 2b x 2b with
+    b = max(floor(min(h, w) * beta), 1), is taken from a random image of the
+    other domain's manifest (drawn first from ``rng``), read with
+    ``read_rgb`` and resized to the sample; the phase stays the sample's.
+    The result is clipped to [0, 255] and truncated to uint8, as in JAX."""
+
+    def __init__(self, json_path: str, image_dir: str, read_rgb: Callable[[str], np.ndarray],
+                 beta_limit: float = 0.001):
+        with open(json_path) as f:
+            data = json.load(f)
+        self.paths = [os.path.join(image_dir, d["image_name"]) for d in data]
+        self.read_rgb = read_rgb
+        self.beta = beta_limit
+
+    def _load_target(self, rng: np.random.Generator, shape) -> np.ndarray:
+        img = self.read_rgb(self.paths[int(rng.integers(0, len(self.paths)))])
+        return Resize(shape[0], shape[1])(img, None)[0]
+
+    def __call__(self, img, lbl, rng: np.random.Generator):
+        tgt = self._load_target(rng, img.shape[:2]).astype(np.float32)
+        src = img.astype(np.float32)
+        h, w = src.shape[:2]
+        b = max(int(np.floor(min(h, w) * self.beta)), 1)
+        cy, cx = h // 2, w // 2
+        out = np.empty_like(src)
+        for c in range(3):
+            fs = np.fft.fft2(src[..., c])
+            amp_s = np.fft.fftshift(np.abs(fs))
+            amp_t = np.fft.fftshift(np.abs(np.fft.fft2(tgt[..., c])))
+            amp_s[cy - b : cy + b, cx - b : cx + b] = amp_t[cy - b : cy + b, cx - b : cx + b]
+            out[..., c] = np.real(np.fft.ifft2(np.fft.ifftshift(amp_s) * np.exp(1j * np.angle(fs))))
+        return np.clip(out, 0, 255).astype(np.uint8), lbl
 
 
 def parse_resize_params(aug_type: str) -> tuple[int, int]:

@@ -1,10 +1,21 @@
 """Host-side datasets: manifest-driven decode + remap + geometric aug.
 
-The part of ``hiast_tpu/data/datasets.py`` that pseudo-label generation,
-validation, plain and consistency self-training use: the Cityscapes target
-set with the deterministic 'PRS-h-w' resize or the 'MS' / 'OMS' train augs,
-read with the previous round's pseudo-labels (``pseudo_dir``) for
-training, and the val split at its native size with its labels (no augs).
+The port of ``hiast_tpu/data/datasets.py``: the GTA5 and SYNTHIA source
+sets, the Cityscapes set (target, val, or the source of the Oxford
+scenario with its 19 -> 9 remap) and the Oxford RobotCar set, each with
+the JAX package's per-dataset aug vocabulary: the deterministic 'PRS-h-w'
+resize, the 'MS' / 'OMS' random-sized crops, 'DACS' and 'FDA-*'.  A target
+set is read with the previous round's pseudo-labels (``pseudo_dir``) for
+self-training, and the val split at its native size with its labels (no
+augs).  Label files, per dataset (JAX ``datasets.py:189-335``):
+
+- GTAV: palette PNGs in GTA5 label ids, read as their indices, remapped;
+- SYNTHIA: channel 0 of a 16-bit RGB PNG, clipped to 255, remapped;
+- Cityscapes: train ids, remapped to 9 classes when the run has 9;
+- Oxford: channel 0, remapped; a label path not ending in ``.png`` is the
+  unlabelled train split (all 255).  A 16-bit file gives what the JAX
+  reader's PIL fallback gives: a gray value's low byte, an RGB(A) or
+  gray+alpha file's first sample's high byte.
 With a ``pseudo_dir`` the dataset also loads that round's
 ``samples_with_class.json`` (the donor lists copy-paste draws from), and a
 preprocessor (``set_preprocessor``, HPA's ``CopyPaste``) runs on each
@@ -117,6 +128,12 @@ class BaseDataset:
     def build_aug_fn(self, aug_type: str | None) -> Callable | None:
         raise NotImplementedError
 
+    def fda(self, section: str) -> A.FDA:
+        """'FDA-Source' / 'FDA-Target': amplitudes from the images of
+        ``cfg.dataset.<section>``, decoded as this dataset decodes."""
+        node = getattr(self.cfg.dataset, section)
+        return A.FDA(node.json_path, node.image_dir, lambda path: read_rgb(path, self.unfilter))
+
     # -- core ---------------------------------------------------------------
     def __len__(self):
         return len(self.img_paths)
@@ -174,6 +191,51 @@ class BaseDataset:
         return result
 
 
+@DATASET.register("GTAV")
+class GTAVDataset(BaseDataset):
+    def read_label(self, path):
+        return remap_label(read_gray(path, self.unfilter), "GTAV")
+
+    def build_aug_fn(self, aug_type):
+        if not aug_type:
+            return None
+        if aug_type == "MS":
+            ch, cw = self.cfg.dataset.crop_size
+            return A.GeometricAug(ch, cw, (341, 950), w2h_ratio=2)
+        if aug_type == "DACS":
+            return A.ResizeCrop(720, 1280, 512, 512)
+        if aug_type.startswith("PRS"):
+            return A.Resize(*A.parse_resize_params(aug_type))
+        if aug_type == "FDA-Target":
+            return self.fda("target")
+        raise ValueError(f"invalid aug_type {aug_type!r}")
+
+
+@DATASET.register("SYNTHIA")
+class SYNTHIADataset(BaseDataset):
+    def read_label(self, path):
+        lbl = decode_png_file(path, self.unfilter, palette=False)  # 16-bit RGB: uint16
+        if lbl is None:
+            lbl = _pil_read(path, None)
+        if lbl.ndim == 3:
+            lbl = lbl[:, :, 0]
+        return remap_label(np.clip(lbl, 0, 255).astype(np.uint8), "SYNTHIA")
+
+    def build_aug_fn(self, aug_type):
+        if not aug_type:
+            return None
+        if aug_type == "MS":
+            ch, cw = self.cfg.dataset.crop_size
+            return A.GeometricAug(ch, cw, (341, 640), w2h_ratio=2)
+        if aug_type == "DACS":
+            return A.ResizeCrop(760, 1280, 512, 512)
+        if aug_type.startswith("PRS"):
+            return A.Resize(*A.parse_resize_params(aug_type))
+        if aug_type == "FDA-Target":
+            return self.fda("target")
+        raise ValueError(f"invalid aug_type {aug_type!r}")
+
+
 @DATASET.register("Cityscapes")
 class CityscapesDataset(BaseDataset):
     def read_label(self, path):
@@ -192,12 +254,43 @@ class CityscapesDataset(BaseDataset):
             return A.GeometricAug(ch, cw, (341, 1000), w2h_ratio=2)
         if aug_type == "OMS":
             return A.GeometricAug(768, 1024, (341, 1000), w2h_ratio=1280 / 960)
+        if aug_type == "DACS":
+            return A.ResizeCrop(512, 1024, 512, 512)
         if aug_type.startswith("PRS"):
             return A.Resize(*A.parse_resize_params(aug_type))
-        raise NotImplementedError(
-            f"aug_type {aug_type!r} is ROADMAP.md item A14 (DACS, FDA, with the source datasets): "
-            "not ported yet"
-        )
+        if aug_type == "FDA-Source":
+            return self.fda("source")
+        if aug_type == "FDA-Target":
+            return self.fda("target")
+        raise ValueError(f"invalid aug_type {aug_type!r}")
+
+
+@DATASET.register("Oxford")
+class OxfordDataset(BaseDataset):
+    def read_label(self, path):
+        if self.num_classes != 9:
+            raise ValueError(f"Oxford has 9 classes, not {self.num_classes}")
+        if not path.endswith(".png"):  # the unlabelled train split
+            return None
+        lbl = decode_png_file(path, self.unfilter, palette=False)
+        if lbl is None:
+            lbl = _pil_read(path, None)
+        if lbl.dtype == np.uint16:  # as PIL reads 16-bit files (module docstring)
+            lbl = lbl.astype(np.uint8) if lbl.ndim == 2 else (lbl[:, :, 0] >> 8).astype(np.uint8)
+        if lbl.ndim == 3:
+            lbl = lbl[:, :, 0]
+        return remap_label(np.ascontiguousarray(lbl), "Oxford")
+
+    def build_aug_fn(self, aug_type):
+        if not aug_type:
+            return None
+        if aug_type == "OMS":
+            return A.GeometricAug(768, 1024, (341, 900), w2h_ratio=1280 / 960)
+        if aug_type.startswith("PRS"):
+            return A.Resize(*A.parse_resize_params(aug_type))
+        if aug_type == "FDA-Source":
+            return self.fda("source")
+        raise ValueError(f"invalid aug_type {aug_type!r}")
 
 
 def build_dataset(cfg, section, pseudo_dir=None, aug_type=None, num_classes=None, *, unfilter: Unfilter):

@@ -3,10 +3,11 @@
 The port's replacement for what ``hiast_tpu/data/native_ops.py`` gives the
 data path, without a C++ library that needs zlib's headers:
 
-- ``encode_png`` writes 8-bit gray, RGB or RGBA images with the first row
-  unfiltered and every later row Up-filtered, deflated at zlib level 1 — the
-  layout of the JAX package's native label encoder (label maps are mostly
-  runs, so Up rows deflate to almost nothing).
+- ``encode_png`` writes 8- or 16-bit gray, gray+alpha, RGB or RGBA images,
+  and 8-bit palette images, with the first row unfiltered and every later
+  row Up-filtered, deflated at zlib level 1 — the layout of the JAX
+  package's native label encoder (label maps are mostly runs, so Up rows
+  deflate to almost nothing).
 - ``decode_png`` reads every non-interlaced PNG: gray at 1, 2, 4, 8 and 16
   bits, gray+alpha, RGB and RGBA at 8 and 16 bits, and palette images at
   1, 2, 4 and 8 bits (looked up in PLTE, or their indices with
@@ -49,32 +50,42 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
     return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", crc)
 
 
-def encode_png(arr: np.ndarray, level: int = 1) -> bytes:
-    """uint8 [H, W] or [H, W, C] (C in 1..4) -> PNG bytes."""
-    arr = np.ascontiguousarray(arr, np.uint8)
+def encode_png(arr: np.ndarray, level: int = 1, palette: np.ndarray | None = None) -> bytes:
+    """uint8 or uint16 [H, W] or [H, W, C] (C in 1..4) -> PNG bytes, at 8
+    or 16 bits a sample (16-bit samples stored big-endian).  With
+    ``palette`` (uint8 [N, 3]) a uint8 [H, W] array is written as the
+    indices of an 8-bit palette image."""
+    depth = 16 if arr.dtype == np.uint16 else 8
+    arr = np.ascontiguousarray(arr, ">u2" if depth == 16 else np.uint8)
     if arr.ndim == 2:
         arr = arr[:, :, None]
     if arr.ndim != 3 or arr.shape[2] not in _COLOUR_TYPE:
         raise ValueError(f"cannot encode an array of shape {arr.shape} as PNG")
     h, w, c = arr.shape
-    rows = arr.reshape(h, w * c)
-    raw = np.empty((h, w * c + 1), np.uint8)
+    rows = arr.reshape(h, w * c).view(np.uint8)
+    raw = np.empty((h, rows.shape[1] + 1), np.uint8)
     raw[:, 0] = 2  # Up
     raw[0, 0] = 0  # None: the first row has no row above it
     raw[0, 1:] = rows[0]
     np.subtract(rows[1:], rows[:-1], out=raw[1:, 1:])  # wraps mod 256
-    header = struct.pack(">IIBBBBB", w, h, 8, _COLOUR_TYPE[c], 0, 0, 0)
+    colour, plte = _COLOUR_TYPE[c], b""
+    if palette is not None:
+        if depth != 8 or c != 1:
+            raise ValueError("a palette image holds uint8 [H, W] indices")
+        colour, plte = 3, _chunk(b"PLTE", np.ascontiguousarray(palette, np.uint8).tobytes())
+    header = struct.pack(">IIBBBBB", w, h, depth, colour, 0, 0, 0)
     return (
         _SIGNATURE
         + _chunk(b"IHDR", header)
+        + plte
         + _chunk(b"IDAT", zlib.compress(raw.tobytes(), level))
         + _chunk(b"IEND", b"")
     )
 
 
-def write_png(path: str, arr: np.ndarray) -> None:
+def write_png(path: str, arr: np.ndarray, palette: np.ndarray | None = None) -> None:
     with open(path, "wb") as f:
-        f.write(encode_png(arr))
+        f.write(encode_png(arr, palette=palette))
 
 
 # -- unfiltering ----------------------------------------------------------------

@@ -30,6 +30,9 @@ weights across:
 
   The depthwise kernel [k,k,1,C] becomes [C,1,k,k] and the fuse kernel
   [1,1,in,out] [out,in,1,1] by the same HWIO -> OIHW transpose.
+- ``flax_to_discriminator_state_dict``: the JAX ``FCDiscriminator``'s
+  ``{'params': {conv1..conv4, classifier}}`` -> the port's
+  ``FCDiscriminator`` state_dict (HWIO -> OIHW, the same names).
 - ``hf_to_port_state_dict``: a HuggingFace ``transformers`` Segformer
   state_dict (``segformer.encoder.*``) -> the port's mmseg names, with the
   separate key/value projections fused into ``attn.kv``.
@@ -101,6 +104,19 @@ def flax_to_port_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
     for key in [k for k in out if re.search(r"\.attn\.k\.(weight|bias)$", k)]:
         v_key = key.replace(".attn.k.", ".attn.v.")
         out[key.replace(".attn.k.", ".attn.kv.")] = torch.cat([out.pop(key), out.pop(v_key)], 0)
+    return out
+
+
+_DISCRIMINATOR_LAYERS = ("conv1", "conv2", "conv3", "conv4", "classifier")
+
+
+def flax_to_discriminator_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
+    """JAX ``FCDiscriminator`` variables -> the port's ``FCDiscriminator``
+    state_dict; raises on any other layer name."""
+    out = flax_to_port_state_dict({"params": variables["params"]})
+    want = {f"{layer}.{leaf}" for layer in _DISCRIMINATOR_LAYERS for leaf in ("weight", "bias")}
+    if set(out) != want:
+        raise KeyError(f"not FCDiscriminator variables: {sorted(set(out) ^ want)}")
     return out
 
 

@@ -5,8 +5,8 @@ code/sseg/models/modules/seg_models/deeplab_v2.py:8-69): ASPP-v2 = sum of
 four parallel 3x3 convs at dilations 6/12/18/24 over the 2048-d backbone
 feature.  The 1x1 256-d ``representation`` head is kept for checkpoint
 parity (the reference computes it but never returns it); generation does
-not run it.  ``FCDiscriminator`` comes with the
-adversarial-warmup slice.
+not run it.  ``FCDiscriminator`` is the adversarial warmup's domain
+discriminator.
 """
 from __future__ import annotations
 
@@ -76,6 +76,37 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
             m.reset_running_stats()
             if name.endswith(".bn3"):
                 m.weight.fill_(0.1)
+
+
+class FCDiscriminator(nn.Module):
+    """Fully-convolutional domain discriminator (JAX
+    ``deeplab_v2.FCDiscriminator``; reference
+    code/sseg/models/modules/discriminator.py:7-29): five 4x4 stride-2
+    pad-1 convs, widths ndf, 2ndf, 4ndf, 8ndf and 1, LeakyReLU 0.2 between
+    them.  NCHW [B, C, H, W] -> [B, 1, H/32, W/32]."""
+
+    def __init__(self, num_classes: int, ndf: int = 64):
+        super().__init__()
+        widths = [num_classes, ndf, ndf * 2, ndf * 4, ndf * 8]
+        for i in range(4):
+            setattr(self, f"conv{i + 1}", nn.Conv2d(widths[i], widths[i + 1], 4, stride=2, padding=1))
+        self.classifier = nn.Conv2d(ndf * 8, 1, 4, stride=2, padding=1)
+        self.leaky_relu = nn.LeakyReLU(0.2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for conv in (self.conv1, self.conv2, self.conv3, self.conv4):
+            x = self.leaky_relu(conv(x))
+        return self.classifier(x)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        """torch's default Conv2d initialisation (the reference's), drawn
+        from ``generator``: weights and biases U(-1/sqrt(fan_in), 1/sqrt(fan_in))."""
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                bound = 1.0 / (m.in_channels * m.kernel_size[0] * m.kernel_size[1]) ** 0.5
+                m.weight.copy_((torch.rand(m.weight.shape, generator=generator) * 2 - 1) * bound)
+                m.bias.copy_((torch.rand(m.bias.shape, generator=generator) * 2 - 1) * bound)
 
 
 def build_seg_model(cfg) -> nn.Module:

@@ -3,10 +3,12 @@
 The port of ``hiast_tpu/models/segmentors.py`` (reference:
 code/sseg/models/segmentors/*.py).  ``raw_apply`` and ``forward`` run with
 autograd wherever the caller has it on (a train step); the eval paths wrap
-them in ``torch.inference_mode``.  ``SelfTrainingSegmentor.compute_loss``
-is the self-training objective with its consistency term against a
-teacher target; the directional-consistency loss and the
-adversarial-warmup segmentor come with their slices.
+them in ``torch.inference_mode``.  ``SourceOnlySegmentor.compute_loss`` is
+the supervised source loss; ``SelfTrainingSegmentor.compute_loss`` the
+self-training objective with its consistency term against a teacher
+target; ``AdversarialWarmupSegmentor`` holds the domain discriminator and
+the generator's and the discriminator's losses.  The
+directional-consistency loss comes with its slice.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import copy
 import torch
 from torch import nn
 
-from hiast_tpu_torch.models.deeplab_v2 import build_seg_model
+from hiast_tpu_torch.models.deeplab_v2 import FCDiscriminator, build_seg_model
 from hiast_tpu_torch.ops import losses as L
 from hiast_tpu_torch.ops.resize import bilinear_resize
 from hiast_tpu_torch.registry import LOSS, MODEL
@@ -61,6 +63,10 @@ class BaseSegmentor:
 class SourceOnlySegmentor(BaseSegmentor):
     """Supervised training on source only (reference source_only_segmentor.py)."""
 
+    def compute_loss(self, logits: torch.Tensor, lbl: torch.Tensor) -> dict:
+        seg = self.cfg.model.predictor.seg_loss
+        return {"seg_loss": seg.source_weight * LOSS[seg.type](logits, lbl)}
+
 
 @MODEL.register("SelfTrainingSegmentor")
 class SelfTrainingSegmentor(BaseSegmentor):
@@ -98,6 +104,61 @@ class SelfTrainingSegmentor(BaseSegmentor):
                 t_logits, t_cst_lbl, refer_labels=t_plbl, region=cst.cst_loss.region,
             )
         return losses
+
+
+@MODEL.register("AdversarialWarmupSegmentor")
+class AdversarialWarmupSegmentor(BaseSegmentor):
+    """AdaptSegNet/AdvEnt-style adversarial warmup (JAX
+    ``segmentors.AdversarialWarmupSegmentor``, reference
+    adversarial_warmup_segmentor.py:12-86): the trunk and a domain
+    discriminator (``self.discriminator``, an ``FCDiscriminator`` over the
+    class maps; source is 0, target 1).  The discriminator runs under
+    ``dtype`` autocast on float32 inputs and returns float32."""
+
+    def __init__(self, cfg):
+        if not cfg.model.discriminator.is_enabled:
+            raise ValueError("AdversarialWarmupSegmentor needs model.discriminator.is_enabled True")
+        super().__init__(cfg)
+        self.discriminator = FCDiscriminator(cfg.dataset.num_classes)
+
+    def d_input(self, logits: torch.Tensor) -> torch.Tensor:
+        """The softmax of NCHW logits in float32 (AdaptSegNet), or its
+        entropy map under ``is_entropy_input`` (AdvEnt)."""
+        probs = torch.softmax(logits.float(), dim=1)
+        if self.cfg.model.discriminator.is_entropy_input:
+            return L.prob_to_entropy(probs)
+        return probs
+
+    def d_forward(self, logits: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        x = self.d_input(logits)
+        with torch.autocast(x.device.type, dtype=dtype, enabled=dtype != torch.float32):
+            return self.discriminator(x).float()
+
+    def compute_g_loss(self, s_logits: torch.Tensor, t_logits: torch.Tensor, s_lbl: torch.Tensor,
+                       dtype: torch.dtype) -> dict:
+        """The generator's losses: the source segmentation loss, the
+        adversarial loss (the target's discriminator output against the
+        source label 0) and, with ``ent_loss.weight`` > 0, MinEnt on the
+        target.  Gradients reach the discriminator's parameters too where
+        they require them; the step keeps them out of its update."""
+        cfg = self.cfg
+        pred, disc = cfg.model.predictor, cfg.model.discriminator
+        losses = {"source_seg_loss": pred.seg_loss.source_weight * LOSS[pred.seg_loss.type](s_logits, s_lbl)}
+        t_d = self.d_forward(t_logits, dtype)
+        losses["adv_loss"] = disc.D_loss.adv_weight * LOSS[disc.D_loss.type](t_d, torch.zeros_like(t_d))
+        if pred.ent_loss.weight > 0:  # MinEnt
+            losses["target_ent_loss"] = pred.ent_loss.weight * L.mean_entropy(torch.softmax(t_logits.float(), dim=1))
+        return losses
+
+    def compute_d_loss(self, s_logits: torch.Tensor, t_logits: torch.Tensor, dtype: torch.dtype) -> dict:
+        """The discriminator's loss on the detached logits: source 0,
+        target 1, averaged."""
+        disc = self.cfg.model.discriminator
+        d_loss_fn = LOSS[disc.D_loss.type]
+        s_d = self.d_forward(s_logits.detach(), dtype)
+        t_d = self.d_forward(t_logits.detach(), dtype)
+        d_loss = (d_loss_fn(s_d, torch.zeros_like(s_d)) + d_loss_fn(t_d, torch.ones_like(t_d))) / 2
+        return {"D_loss": disc.D_loss.weight * d_loss}
 
 
 def build_segmentor(cfg) -> BaseSegmentor:

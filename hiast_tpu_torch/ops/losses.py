@@ -3,8 +3,9 @@
 The port of ``hiast_tpu/ops/losses.py`` (reference:
 code/sseg/models/modules/losses.py:9-89 and the region regularisers of
 code/sseg/models/segmentors/self_training_segmentor.py:128-163): the
-registered losses CE, SoftCE, KLDIV, MSE and BCEWithLogits, and the
-region regularisers KLD-to-uniform and entropy.
+registered losses CE, SoftCE, KLDIV, MSE and BCEWithLogits, the
+region regularisers KLD-to-uniform and entropy, and the adversarial
+warmup's entropy map and MinEnt loss.
 
 Logits are NCHW [B, C, H, W], the port's layout (the JAX functions take
 NHWC); labels and region masks are [B, H, W].  Region protocol: a loss can
@@ -14,6 +15,8 @@ of NONZERO entries, the reference's ``loss.sum() / (loss != 0).sum()``.
 Reductions run in float32 whatever the logits' dtype.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -167,3 +170,20 @@ def entropy_sharpen(logits: torch.Tensor, pixel_weight: torch.Tensor) -> torch.T
     logp = _log_softmax(logits)
     val_num = (pixel_weight > 0).sum().clamp(min=1).float() * num_classes
     return -(logp.exp() * pixel_weight[:, None] * logp).sum() / val_num
+
+
+def prob_to_entropy(prob: torch.Tensor) -> torch.Tensor:
+    """Per-class weighted self-information map of NCHW probabilities, the
+    AdvEnt discriminator input (reference adversarial_warmup_segmentor.py:71-86):
+    -p log2(p) / log2(C), in float32."""
+    c = prob.shape[1]
+    p = prob.float()
+    return -(p * torch.log2(p + 1e-30)) / math.log2(c)
+
+
+def mean_entropy(prob: torch.Tensor) -> torch.Tensor:
+    """MinEnt loss: the mean per-pixel entropy of NCHW probabilities,
+    log2-normalised by the number of classes."""
+    b, c, h, w = prob.shape
+    p = prob.float()
+    return -(p * torch.log2(p + 1e-30)).sum() / (b * h * w * math.log2(c))

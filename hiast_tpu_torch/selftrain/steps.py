@@ -1,8 +1,8 @@
 """Train and eval steps of the port.
 
 The port of ``hiast_tpu/selftrain/steps.py``: ``normalize_image``,
-``make_eval_forward``, the plain self-training step and the HIAST
-consistency step.  The JAX package compiles one program per step; here a
+``make_eval_forward``, the source-only and adversarial warmup steps, the
+plain self-training step and the HIAST consistency step.  The JAX package compiles one program per step; here a
 step is eager PyTorch: the trunk under bf16 autocast (float32 master
 weights, no loss scaling), BatchNorm in train mode (batch statistics,
 running statistics updated; frozen affine under ``model.is_freeze_bn``),
@@ -124,6 +124,83 @@ def _apply_update(optimizer, lr_fn: Callable, count: StepCount, losses: dict, pa
 
 def _trainable(optimizer) -> list:
     return [p for group in optimizer.param_groups for p in group["params"]]
+
+
+def make_source_only_step(segmentor, optimizer: torch.optim.Optimizer, lr_fn: Callable,
+                          dtype: torch.dtype = torch.bfloat16) -> Callable:
+    """One supervised source update (JAX ``make_source_only_step``):
+    ``step(batch, count)`` takes ``s_img`` uint8 [B, H, W, 3] and ``s_lbl``
+    uint8 [B, H, W] on the device and returns the detached ``seg_loss``,
+    computed on the full-resolution logits."""
+    guard = segmentor.cfg.runtime.skip_nonfinite_updates
+    module = segmentor.module
+    params, buffers = _trainable(optimizer), list(module.buffers())
+
+    def step(batch: dict, count: StepCount) -> dict:
+        module.train()
+        snapshot = [b.clone() for b in buffers] if guard else None
+        out = segmentor.forward(normalize_image(batch["s_img"]), dtype)
+        losses = segmentor.compute_loss(out["logits"], batch["s_lbl"].long())
+        optimizer.zero_grad(set_to_none=True)
+        _total_loss(losses).backward()
+        _apply_update(optimizer, lr_fn, count, losses, params, buffers, snapshot)
+        return {k: v.detach() for k, v in losses.items()}
+
+    return step
+
+
+def make_adversarial_step(segmentor, optimizer: torch.optim.Optimizer, lr_fn: Callable,
+                          d_optimizer: torch.optim.Optimizer, d_lr_fn: Callable,
+                          dtype: torch.dtype = torch.bfloat16) -> Callable:
+    """One adversarial warmup update (JAX ``make_adversarial_step``,
+    reference adversarial_warmup_trainer.py).
+
+    ``step(batch, count)`` takes ``s_img``, ``s_lbl`` and ``t_img`` (uint8,
+    on the device).  The trunk runs the source, then the target, in train
+    mode (BatchNorm's running statistics update twice, in that order).
+    The generator's losses see the discriminator as it was before the step
+    with its parameters frozen, so the generator's backward writes no
+    gradient into them; the discriminator's loss then runs on the detached
+    logits of the same two forwards.  Then the generator's update, then the
+    discriminator's, each at its schedule's lr for ``count.updates``.
+    Under ``runtime.skip_nonfinite_updates`` one check covers every loss and
+    both models' gradients, and a skipped step leaves both models, both
+    optimizers and the BatchNorm buffers as they were.  Returns the
+    detached ``source_seg_loss``, ``adv_loss``, ``target_ent_loss`` (when
+    its weight is nonzero) and ``D_loss``."""
+    guard = segmentor.cfg.runtime.skip_nonfinite_updates
+    module, discriminator = segmentor.module, segmentor.discriminator
+    params, buffers = _trainable(optimizer), list(module.buffers())
+    d_params = _trainable(d_optimizer)
+
+    def step(batch: dict, count: StepCount) -> dict:
+        module.train()
+        snapshot = [b.clone() for b in buffers] if guard else None
+        s_logits = segmentor.forward(normalize_image(batch["s_img"]), dtype)["logits"]
+        t_logits = segmentor.forward(normalize_image(batch["t_img"]), dtype)["logits"]
+        discriminator.requires_grad_(False)
+        try:
+            losses = segmentor.compute_g_loss(s_logits, t_logits, batch["s_lbl"].long(), dtype)
+        finally:
+            discriminator.requires_grad_(True)
+        optimizer.zero_grad(set_to_none=True)
+        _total_loss(losses).backward()
+        d_losses = segmentor.compute_d_loss(s_logits, t_logits, dtype)
+        d_optimizer.zero_grad(set_to_none=True)
+        d_losses["D_loss"].backward()
+        losses.update(d_losses)
+        if snapshot is None or _all_finite(losses, params + d_params):
+            set_lr(optimizer, lr_fn(count.updates))
+            optimizer.step()
+            set_lr(d_optimizer, d_lr_fn(count.updates))
+            d_optimizer.step()
+            count.updates += 1
+        else:
+            torch._foreach_copy_(buffers, snapshot)
+        count.iterations += 1
+        return {k: v.detach() for k, v in losses.items()}
+
+    return step
 
 
 def make_self_training_step(segmentor, optimizer: torch.optim.Optimizer, lr_fn: Callable,

@@ -18,7 +18,9 @@ code/utils/utils.py:135-163, code/sseg/models/modules/schedulers.py:7-14) on
   times the group's multiplier, set by ``set_lr`` before each update.
 
 bf16 autocast needs no loss scaling, so there is no GradScaler.  The EMA
-teacher's update is ``ema_update``.
+teacher's update is ``ema_update``.  The adversarial warmup's
+discriminator has its own plain Adam (``make_d_optimizer``) on its own
+schedule (``lr_schedule_for_d``).
 """
 from __future__ import annotations
 
@@ -43,6 +45,32 @@ def lr_schedule(cfg) -> Callable[[int], float]:
         power = cfg.train.lr_scheduler.poly.power
         return lambda t: base * (1.0 - t / total) ** power
     raise ValueError(f"{kind!r} is not a valid scheduler")
+
+
+def lr_schedule_for_d(cfg) -> Callable[[int], float]:
+    """step -> the discriminator's lr (JAX ``lr_schedule_for_d``): the same
+    scheduler type at ``model.discriminator.lr``, but a 'Cosine' floor of
+    ``train.lr * 1e-3``, the generator's (the reference's scheduler builder
+    hardcodes it for every optimizer it wraps, schedulers.py:9)."""
+    base = cfg.model.discriminator.lr
+    total = cfg.train.total_iter
+    kind = cfg.train.lr_scheduler.type
+    if kind == "Cosine":
+        eta_min = cfg.train.lr * 1e-3
+        return lambda t: eta_min + (base - eta_min) * 0.5 * (1 + math.cos(math.pi * t / total))
+    if kind == "Poly":
+        power = cfg.train.lr_scheduler.poly.power
+        return lambda t: base * (1.0 - t / total) ** power
+    raise ValueError(f"{kind!r} is not a valid scheduler")
+
+
+def make_d_optimizer(cfg, module: nn.Module) -> torch.optim.Optimizer:
+    """The discriminator's optimizer (JAX ``make_d_optimizer``, reference
+    utils.py:150-152): Adam (0.9, 0.999) over every parameter of
+    ``module``, one group at the schedule's lr, no weight decay."""
+    base = cfg.model.discriminator.lr
+    return torch.optim.Adam([{"params": list(module.parameters()), "lr": base, "lr_mult": 1.0}],
+                            betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
 
 
 def param_labels(module: nn.Module, freeze_bn: bool) -> dict[str, str]:

@@ -2,12 +2,15 @@
 
 The port of ``hiast_tpu/selftrain/trainers.py`` (reference:
 code/workflows/trainer/*.py): ``BaseTrainer`` assembles model, optimizer,
-data streams, recorder and checkpoint policy; ``SelfTrainingTrainer`` trains
-on the previous round's pseudo-labels; ``ConsistencySelfTrainingTrainer``
-is the HIAST trainer (EMA teacher, strong view on the card, hard-aware
-copy-paste).  One device, one process; the mutual-learning and warmup
-trainers come with their slices.  Gating the side-effect writers on rank 0
-comes with multi-GPU training (ROADMAP.md item A11).
+data streams, recorder and checkpoint policy; the warmup trainers train on
+a labelled source, ``SourceOnlyTrainer`` alone and
+``AdversarialWarmupTrainer`` against a domain discriminator on the target;
+``SelfTrainingTrainer`` trains on the previous round's pseudo-labels;
+``ConsistencySelfTrainingTrainer`` is the HIAST trainer (EMA teacher,
+strong view on the card, hard-aware copy-paste).  One device, one
+process; the mutual-learning trainer comes with its slice.  Gating the
+side-effect writers on rank 0 comes with multi-GPU training (ROADMAP.md
+item A11).
 
 The loop keeps the JAX trainer's one-batch-deep pipeline: it enqueues step
 k on the card, then assembles and uploads batch k+1 (from pinned memory, so
@@ -33,7 +36,12 @@ from hiast_tpu_torch.evaluation import make_val_step, run_validation
 from hiast_tpu_torch.models.segmentors import build_segmentor
 from hiast_tpu_torch.registry import PREPROCESSOR, TRAINER
 from hiast_tpu_torch.selftrain import steps as S
-from hiast_tpu_torch.selftrain.train_state import lr_schedule, make_optimizer
+from hiast_tpu_torch.selftrain.train_state import (
+    lr_schedule,
+    lr_schedule_for_d,
+    make_d_optimizer,
+    make_optimizer,
+)
 from hiast_tpu_torch.utils.checkpoint import (
     CheckpointPolicy,
     load_train_state,
@@ -47,8 +55,11 @@ COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 class BaseTrainer:
-    """Common assembly: model, optimizer, data, recorder, checkpoint policy."""
+    """Common assembly: model, optimizer, data, recorder, checkpoint policy.
+    The source stream draws from seed ``random_seed``, the target stream
+    from ``random_seed + 1`` (the JAX ``_stream_seed`` offsets)."""
 
+    needs_source = False
     needs_target = False
 
     def __init__(self, cfg, device: torch.device | str = "cuda"):
@@ -139,6 +150,12 @@ class BaseTrainer:
 
     def build_train_data_reader(self):
         cfg = self.cfg
+        if self.needs_source:
+            ds = build_dataset(cfg, "source", unfilter=self.unfilter)
+            self.s_dataset = ds
+            self.s_stream = infinite_batches(
+                ds, cfg.train.batch_size, seed=cfg.train.random_seed, num_workers=self._workers()
+            )
         if self.needs_target:
             ds = build_dataset(cfg, "target", pseudo_dir=cfg.dataset.target.pseudo_dir, unfilter=self.unfilter)
             self.t_dataset = ds
@@ -252,6 +269,83 @@ class BaseTrainer:
     def save_checkpoint(self, iteration: int, is_best: bool):
         self.ckpt.save("model", self.checkpoint_state(), iteration, is_best)
         self._last_ckpt_iter = iteration
+
+
+@TRAINER.register("SourceOnlyTrainer")
+class SourceOnlyTrainer(BaseTrainer):
+    """Supervised warmup on the labelled source (reference source_only_trainer.py)."""
+
+    needs_source = True
+
+    def make_step(self):
+        return S.make_source_only_step(self.segmentor, self.optimizer, self.lr_fn, self.dtype)
+
+    def next_batch(self):
+        b = next(self.s_stream)
+        return {"s_img": b["images"], "s_lbl": b["labels"]}  # uint8; cast on the device
+
+
+@TRAINER.register("AdversarialWarmupTrainer")
+class AdversarialWarmupTrainer(BaseTrainer):
+    """Adversarial warmup (reference adversarial_warmup_trainer.py; JAX
+    ``trainers.py:582-608``): the source's segmentation loss, and the
+    target aligned to it through ``AdversarialWarmupSegmentor``'s
+    discriminator, which trains beside the trunk with its own Adam.
+
+    The discriminator is initialised from ``random_seed + 7`` once the
+    trunk's weights are final.  The full-state ``model_last.pth`` carries
+    its state_dict (``discriminator``), its optimizer (``d_optimizer``) and
+    its schedule count (``d_lr_schedule_step``) beside the trunk's, and
+    ``train.resume_from`` restores all three; ``load_weights`` of the file
+    still reads the trunk alone, so the round driver takes it as
+    ``--warmup_ckpt`` and ``--warmup_pseudo_ckpt``."""
+
+    needs_source = True
+    needs_target = True
+
+    def assert_cfg(self):
+        if not self.cfg.model.discriminator.is_enabled:
+            raise ValueError("AdversarialWarmupTrainer needs model.discriminator.is_enabled True")
+
+    def build_extra_state(self, full):
+        cfg = self.cfg
+        discriminator = self.segmentor.discriminator
+        discriminator.init_weights(torch.Generator().manual_seed(cfg.train.random_seed + 7))
+        discriminator.to(self.device)
+        self.d_optimizer = make_d_optimizer(cfg, discriminator)
+        self.d_lr_fn = lr_schedule_for_d(cfg)
+        if full is None:
+            return
+        if "discriminator" not in full:
+            raise ValueError(
+                f"{cfg.train.resume_from}: a full train state without a discriminator; start "
+                "from its weights with train.init_from instead"
+            )
+        if int(full["d_lr_schedule_step"]) != self.count.updates:
+            raise ValueError(
+                f"{cfg.train.resume_from}: discriminator schedule at {full['d_lr_schedule_step']}, "
+                f"the trunk's at {self.count.updates}"
+            )
+        discriminator.load_state_dict(full["discriminator"])
+        self.d_optimizer.load_state_dict(full["d_optimizer"])
+        self.logger.info(f"resumed the discriminator from {cfg.train.resume_from}")
+
+    def make_step(self):
+        return S.make_adversarial_step(
+            self.segmentor, self.optimizer, self.lr_fn, self.d_optimizer, self.d_lr_fn, self.dtype
+        )
+
+    def next_batch(self):
+        s = next(self.s_stream)
+        t = next(self.t_stream)
+        return {"s_img": s["images"], "s_lbl": s["labels"], "t_img": t["images"]}  # uint8
+
+    def checkpoint_state(self) -> dict:
+        state = super().checkpoint_state()
+        state["discriminator"] = self.segmentor.discriminator.state_dict()
+        state["d_optimizer"] = self.d_optimizer.state_dict()
+        state["d_lr_schedule_step"] = self.count.updates
+        return state
 
 
 @TRAINER.register("SelfTrainingTrainer")

@@ -188,6 +188,19 @@ def test_hist_kernel_cluster_sizes(cuda_device, c, num_bins):
         _check_hist(x, B * H * W, num_bins)
 
 
+@pytest.mark.parametrize("c", [9, 7])  # 9: the Oxford scenario's instantiation; 7: the generic one (up to 32)
+@pytest.mark.parametrize("nvalid", [B * H * W, H * W + 7])
+def test_kernels_match_plain_at_other_class_counts(cuda_device, c, nvalid):
+    thr = torch.from_numpy(np.random.default_rng(16).uniform(0.3, 0.999, c).astype(np.float32)).to(cuda_device)
+    for x in (_peaked(14, cuda_device, c=c), _logits(15, cuda_device)[:, :c].contiguous()):
+        _check_hist(x, nvalid, 2048)
+        _check_select(x, thr, nvalid)
+        first = K.ias_select(x, thr, nvalid, with_maxprob=True)
+        again = K.ias_select(x, thr, nvalid, with_maxprob=True)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("h,w", [(37, 51), (5, 3)])  # H*W odd: scalar loads and stores
 def test_kernels_take_any_pixel_count(cuda_device, h, w):
     x = _peaked(9, cuda_device, h=h, w=w)

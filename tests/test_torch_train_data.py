@@ -137,6 +137,14 @@ def test_infinite_batches_refuses_a_dataset_smaller_than_a_batch(target_root):
 
 
 def test_unported_augs_raise(target_root):
+    """Every aug of the JAX package is ported ('DACS' and 'FDA-*' since the
+    source datasets came): an aug type the dataset does not know raises
+    ValueError, as the JAX package's does."""
+    for aug in (["RandomErase"], ["FDA-Sourc"]):
+        jcfg, cfg = _cfgs(target_root, aug)
+        with pytest.raises(ValueError, match="invalid aug_type"):
+            jax_build_dataset(jcfg, "target")
+        with pytest.raises(ValueError, match="invalid aug_type"):
+            build_dataset(cfg, "target", unfilter=unfilter_plain)
     _, cfg = _cfgs(target_root, ["DACS"])
-    with pytest.raises(NotImplementedError, match="A14"):
-        build_dataset(cfg, "target", unfilter=unfilter_plain)
+    assert len(build_dataset(cfg, "target", unfilter=unfilter_plain).aug_fns) == 1
