@@ -24,7 +24,9 @@
    the histogram), the peaked input drawn with Cityscapes' shares mapped
    through the Cityscapes -> 9-class table (the 9-class instantiation);
    and the checks, untimed, at 7 classes on [2, 7, 96, 160] (the generic
-   instantiation, which no path launches).
+   instantiation, which no path launches).  Untimed too: ``ias_hist`` on
+   the peaked [2, 19, 192, 384] grid (DeepLab-v3+'s stride-4 logits under
+   ``stats_source: low``), with no bin off its plain version.
 3. DeepLab slice: writes 4 synthetic 768x1536 target images, runs IAS
    pseudo-label generation through the port's CLI ``main`` on full-width
    DeepLab-v2/ResNet-101 (random weights from a seed, batch 2, 2048 bins,
@@ -116,7 +118,28 @@
    re-run must skip both rounds and launch nothing; ``cli.validate.main``
    with ``--config_file`` (the shipped ``validate.yaml``, val paths changed)
    validates round 2's teacher; neither ``yaml`` nor ``PIL`` was imported.
-10. The other generation policies through the CLI on phase 3's 4 images from
+10. DeepLab-v3+ through a HIAST round: a configs dir whose ``sl_1.yaml`` is
+   the port's shipped ``deeplab_v3plus_sl_1.yaml`` (data paths, work dir
+   and schedule changed as in 9: 4 iterations, validation at the 4th)
+   beside the shipped ``hiast_setting.yaml``; ``cli.run_rounds.main(...
+   --rounds 1)`` from phase 9's seeded DeepLab-v2 ``.pth`` as warmup
+   student and teacher, on phase 8's 12 images: generation with B1/B2 from
+   the v2 trunk and a seeded head, then consistency training on
+   full-width DeepLab-v3+/R101 (ASPP-v3 at 12/24/36, the 48-channel
+   low-level fusion, the two-conv decoder, logits at stride 4), batch 6 of
+   512x1024 'MS' crops.  Checks that before step 1 the trunk equals the
+   ``.pth``'s and the head its seeded initialisation, 6 launches each of
+   ``ias_hist`` and ``ias_select`` and none in training, the six
+   artifacts, ``model_last.pth`` at step 4, four finite losses an
+   iteration, the student and the teacher moved; prints s/iter (steady: 6
+   steps after 4 more), peak memory, MFU (counted as in 8) and the idle
+   share of 3 profiled steps.  Then ``cli.validate`` on the round's
+   ``ema_model_last.pth`` (``validate.yaml`` with ``model.seg_model.type
+   DeepLab_V3Plus`` and ``validate.color_mask_dir_path``): one colour mask
+   per val image under its basename, each decoded by ``data/png.py`` to
+   that image's predicted indices and to their ``PALETTE_19`` colours;
+   prints images/s; neither ``yaml`` nor ``PIL`` was imported.
+11. The other generation policies through the CLI on phase 3's 4 images from
    the same weights: CT (threshold 0.9; ias_select 2, ias_hist 0), NT
    (ias_select 2, no ``class_threshold.npy``, every pixel selected), CBST
    (p 0.2; ias_hist 2 in its dataset pass, ias_select 2; its thresholds
@@ -124,7 +147,7 @@
    histogram over the same forwards' logits) and IAS with ``ms_sizes``
    [[576, 1152], [768, 1536], [960, 1920]] and flip (2 and 2); each prints
    images/s.
-11. The warmup stage, the handoff and the Oxford round:
+12. The warmup stage, the handoff and the Oxford round:
    a. The adversarial warmup (GTA5 -> Cityscapes): 12 synthetic GTA5-sized
       frames (1052x1914) with 8-bit palette labels in GTA ids, phase 8's
       12 target images and the 4 val images; ``cli.train.main`` with the
@@ -154,14 +177,15 @@
       ias_select 6 at C = 9), 4 iterations of ``SelfTrainingTrainer`` on
       'OMS' 768x1024 crops, then ``cli.validate`` with the 9-class
       protocol; prints images/s and s/iter.
-12. Prints one JSON line of the kernels, the card line again, and last
+13. Prints one JSON line of the kernels, the card line again, and last
    ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` are those of
    the path it serves in this run: ``ias_hist``/``ias_select`` from the
    round driver's two generations (the main path; their times from the
    peaked input), ``sra_attention`` and
    ``sra_attention_bwd`` from the SegFormer training run.  The IAS rows
-   also carry ``launches_by_path`` (the round driver, the handoff round,
-   the Oxford generation) and ``c9``, the times at [2, 9, 768, 1280].  For
+   also carry ``launches_by_path`` (the round driver, the DeepLab-v3+
+   round, the handoff round, the Oxford generation) and ``c9``, the times
+   at [2, 9, 768, 1280].  For
    ``sra_attention`` the
    times are per batch of the serving path (each stage's time times its
    launches per forward, 3, 6, 40, 3, summed), for ``sra_attention_bwd``
@@ -371,11 +395,12 @@ def bound_ms(bytes_moved: float, ops: float) -> tuple[float, str]:
 
 
 def kernel_phase(torch, c: int = C, hw_full: tuple = (H, W), hw_low: tuple = (LOW_H, LOW_W),
-                 shares=CITYSCAPES_SHARES, timed: bool = True):
+                 shares=CITYSCAPES_SHARES, timed: bool = True, hw_low4: tuple | None = None):
     """ias_hist and ias_select against their plain versions on the Gaussian
     and the peaked inputs at ``c`` classes, [B, c, *hw_full] (and
-    [B, c, *hw_low] for the histogram); returns their JSON rows' numbers,
-    timed (when ``timed``) on the peaked input (a trained model's
+    [B, c, *hw_low] for the histogram, and with ``hw_low4`` the peaked
+    [B, c, *hw_low4] grid, with no bin off); returns their JSON rows'
+    numbers, timed (when ``timed``) on the peaked input (a trained model's
     confidences)."""
     from hiast_tpu_torch.ops.cuda.select_kernel import (
         ias_hist, ias_hist_plain, ias_select, ias_select_plain,
@@ -427,6 +452,18 @@ def kernel_phase(torch, c: int = C, hw_full: tuple = (H, W), hw_low: tuple = (LO
                   f"threshold diff={thr_diff:g}")
             if label == "full":
                 thr_main = thr_want
+        if hw_low4 is not None and make is peaked_logits:
+            # DeepLab-v3+'s stride-4 logits under stats_source 'low': every pixel in its plain bin
+            low4 = torch.from_numpy(make((B, c, *hw_low4), 2, *args)).to(dev)
+            nvalid = low4.numel() // c
+            got, want = ias_hist(low4, nvalid, NUM_BINS), ias_hist_plain(low4, nvalid, NUM_BINS)
+            torch.cuda.synchronize()
+            l1 = float((got - want).abs().sum())
+            check(float(got.sum()) == nvalid and l1 == 0.0,
+                  f"ias_hist {kind} stride-4 {list(low4.shape)}: total {float(got.sum())}, bin L1 {l1}")
+            print(f"ias_hist   [{kind}, C={c}, {hw_low4[0]}x{hw_low4[1]}, DeepLab-v3+ stride 4] nvalid={nvalid} "
+                  "every bin equal to the plain version's")
+            del low4
 
         # -- ias_select ---------------------------------------------------
         for label, nvalid in (("full", n), ("full, 2nd sample cut", hw)):
@@ -1325,18 +1362,18 @@ def rewrite_config(text: str, paths: dict, work_dir: str | None = None, total_it
 
 
 def write_shipped_config(out_dir: str, name: str, paths: dict, work_dir: str | None = None,
-                         total_iter: int | None = None) -> str:
-    """The port's shipped config ``name`` written to ``out_dir`` with the
-    data paths of the sections in ``paths``, the work dir and the schedule
-    (``total_iter``, validation at the last) changed, each where given; held,
-    as the port's reader reads it, against the shipped file with those keys
-    set.  Returns its path."""
+                         total_iter: int | None = None, out_name: str | None = None) -> str:
+    """The port's shipped config ``name`` written to ``out_dir`` (as
+    ``out_name`` where given) with the data paths of the sections in
+    ``paths``, the work dir and the schedule (``total_iter``, validation at
+    the last) changed, each where given; held, as the port's reader reads
+    it, against the shipped file with those keys set.  Returns its path."""
     from hiast_tpu_torch.config import load_config
 
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(PORT_CONFIGS, name)) as f:
         text = rewrite_config(f.read(), paths, work_dir, total_iter)
-    path = os.path.join(out_dir, name)
+    path = os.path.join(out_dir, out_name or name)
     with open(path, "w") as f:
         f.write(text)
     overrides = []
@@ -1483,6 +1520,149 @@ def round_driver_phase(torch, work: str, target: tuple, val: tuple, pth: str) ->
     check("PIL" not in sys.modules, "PIL was imported")
     del states
     return {"counts": counts, "records": records, "wall": wall}
+
+
+def v3plus_phase(torch, work: str, target: tuple, val: tuple, pth: str, profile: bool) -> dict:
+    """One HIAST round on full-width DeepLab-v3+/R101 through
+    ``cli.run_rounds --rounds 1`` with the shipped
+    ``deeplab_v3plus_sl_1.yaml`` as ``sl_1.yaml`` (data paths, work dir and
+    schedule changed) and the shipped ``hiast_setting.yaml``, from the round
+    driver phase's seeded DeepLab-v2 ``.pth`` (trunk only), on its 12
+    target images; then ``cli.validate`` of the round's teacher with colour
+    masks.  Returns the generation's launch counts and the rates."""
+    from hiast_tpu_torch import evaluation
+    from hiast_tpu_torch.cli import run_rounds
+    from hiast_tpu_torch.cli import train as cli_train
+    from hiast_tpu_torch.cli import validate as cli_validate
+    from hiast_tpu_torch.data.png import decode_png_file
+    from hiast_tpu_torch.models.deeplab_v3plus import DeepLabV3Plus
+    from hiast_tpu_torch.selftrain.trainers import ConsistencySelfTrainingTrainer
+    from hiast_tpu_torch.utils.checkpoint import load_step
+
+    configs = os.path.join(work, "configs_v3plus")
+    rounds_dir = os.path.join(work, "rounds_v3plus")
+    write_shipped_config(configs, "deeplab_v3plus_sl_1.yaml", {"target": target, "val": val}, rounds_dir,
+                         ROUND_ITERS, out_name="sl_1.yaml")
+    write_shipped_config(configs, "hiast_setting.yaml", {})
+    warm = torch.load(pth, map_location="cpu", weights_only=True)
+    init = {}  # the student as the trainer built it, before step 1
+
+    build_extra_state = ConsistencySelfTrainingTrainer.build_extra_state
+
+    def record_init(trainer, full):
+        init.update({k: v.detach().cpu().clone() for k, v in trainer.segmentor.module.state_dict().items()})
+        init["seed"] = trainer.cfg.train.random_seed
+        return build_extra_state(trainer, full)
+
+    train_main, run = cli_train.main, {}
+
+    def train(argv):  # the round's training, then steady steps, a profiled window and the FLOPs
+        torch.cuda.reset_peak_memory_stats()
+        counts_before = read_counts()
+        trainer = train_main(argv)
+        torch.cuda.synchronize()
+        run.update(peak_gb=torch.cuda.max_memory_allocated() / 1e9, losses=trainer.loss_log,
+                   iter_times=trainer.iter_times,
+                   train_counts={k: v - counts_before[k] for k, v in read_counts().items()})
+        steps = trainer_steps(torch, trainer)
+        steps(4)
+        run["s_per_iter"] = steps(6) / 6
+        run["idle"] = profile_run(torch, "DeepLab-v3+/R101 consistency training, 3 steps", lambda: steps(3),
+                                  table=profile)
+        run["flops"] = consistency_step_flops(torch, trainer)
+        del trainer
+        torch.cuda.empty_cache()
+
+    reset_counts()
+    ConsistencySelfTrainingTrainer.build_extra_state, cli_train.main = record_init, train
+    try:
+        t0 = time.perf_counter()
+        run_rounds.main(["--work_dir", rounds_dir, "--warmup_ckpt", pth, "--warmup_pseudo_ckpt", pth,
+                         "--configs_dir", configs, "--rounds", "1"])
+        wall = time.perf_counter() - t0
+    finally:
+        ConsistencySelfTrainingTrainer.build_extra_state, cli_train.main = build_extra_state, train_main
+    counts = read_counts()
+    n_batches = -(-N_TRAIN_IMAGES // B)
+    check(counts == {"ias_hist": n_batches, "ias_select": n_batches, "sra_attention": 0, "sra_attention_bwd": 0},
+          f"DeepLab-v3+ round launch counts {counts}")
+    check(all(v == 0 for v in run["train_counts"].values()), f"DeepLab-v3+ training launches {run['train_counts']}")
+
+    # before step 1: the trunk is the v2 .pth's, the head the seeded initialisation
+    fresh = DeepLabV3Plus(num_classes=C)
+    fresh.init_weights(torch.Generator().manual_seed(init.pop("seed")))
+    fresh = fresh.state_dict()
+    check(sorted(init) == sorted(fresh), "the trainer built a DeepLab-v3+")
+    trunk = [k for k in init if k.startswith("backbone.")]
+    head = [k for k in init if not k.startswith("backbone.")]
+    check(all(torch.equal(init[k], warm[k]) for k in trunk), "the trunk before step 1 is the DeepLab-v2 .pth's")
+    check(all(torch.equal(init[k], fresh[k]) for k in head), "the head before step 1 is its seeded initialisation")
+
+    round_dir = os.path.join(rounds_dir, "sl_1")
+    ckpt_dir = os.path.join(round_dir, "checkpoints")
+    check_artifacts(os.path.join(round_dir, "pseudo_label", "gray_label"),
+                    [f"hiast_{i}_pseudo_label.png" for i in range(N_TRAIN_IMAGES)])
+    check(load_step(ckpt_dir) == ROUND_ITERS, f"DeepLab-v3+ model_last.pth at step {load_step(ckpt_dir)}")
+    losses = run["losses"]
+    check(len(losses) == ROUND_ITERS and all(np.isfinite(v) for step in losses for v in step.values())
+          and sorted(losses[0]) == ["cst_loss", "ent_ignored_loss", "kld_confident_loss", "target_seg_loss"],
+          f"DeepLab-v3+ round losses {losses}")
+    ema_pth = os.path.join(ckpt_dir, "ema_model_last.pth")
+    student = torch.load(os.path.join(ckpt_dir, "model_last.pth"), map_location="cpu", weights_only=True,
+                         mmap=True)["state_dict"]
+    teacher = torch.load(ema_pth, map_location="cpu", weights_only=True, mmap=True)
+    params = [k for k in init if "running_" not in k and "num_batches" not in k]
+    moved = {name: max(float((sd[k].float() - init[k].float()).abs().max()) for k in params)
+             for name, sd in (("student", student), ("teacher", teacher))}
+    check(moved["student"] > 0 and moved["teacher"] > 0, f"the student and the teacher moved: {moved}")
+    times = run["iter_times"]
+    run_s_per_iter = (times[-1] - times[1]) / (len(times) - 2)
+    for i, step in enumerate(losses, 1):
+        print(f"v3+ round iter {i}: " + ", ".join(f"{k} {v:.5f}" for k, v in step.items()))
+    mfu = run["flops"] / run["s_per_iter"] / BF16_FLOPS_PER_S
+
+    # validation of the round's teacher, colour masks written without PIL
+    color_dir = os.path.join(work, "v3plus_colors")
+    colorize, preds = evaluation.colorize_mask, []
+
+    def record_mask(mask, num_classes):
+        preds.append(mask)
+        return colorize(mask, num_classes)
+
+    reset_counts()
+    evaluation.colorize_mask = record_mask
+    try:
+        result = cli_validate.main(["--device", "cuda", "--config_file", os.path.join(work, "configs", "validate.yaml"),
+                                    "--validate_resume_from", ema_pth, "model.seg_model.type", "DeepLab_V3Plus",
+                                    "validate.color_mask_dir_path", color_dir])
+    finally:
+        evaluation.colorize_mask = colorize
+    iou = np.asarray(result["iou"])
+    check(iou.shape == (C,) and bool(np.all(np.isfinite(iou))) and 0.0 <= result["miou"] <= 1.0,
+          f"DeepLab-v3+ validation: {result}")
+    check(all(v == 0 for v in read_counts().values()), "DeepLab-v3+ validation launched kernels")
+    with open(val[0]) as f:
+        val_names = [os.path.basename(e["image_name"]) for e in json.load(f)]
+    check(sorted(os.listdir(color_dir)) == sorted(val_names) and len(preds) == len(val_names),
+          f"colour masks {sorted(os.listdir(color_dir))} for {len(preds)} predictions")
+    palette = np.asarray(evaluation.PALETTE_19, np.uint8).reshape(-1, 3)
+    for name, pred in zip(val_names, preds):
+        path = os.path.join(color_dir, name)
+        check(pred.shape == (VAL_H, VAL_W) and np.array_equal(decode_png_file(path, palette=False), pred),
+              f"colour mask {name}: indices")
+        check(np.array_equal(decode_png_file(path), palette[pred]), f"colour mask {name}: colours")
+    val_rate = len(val_names) / result["seconds"]
+    check("yaml" not in sys.modules and "PIL" not in sys.modules, "yaml or PIL was imported")
+    print(f"DeepLab-v3+/R101 round [run_rounds --rounds 1, deeplab_v3plus_sl_1.yaml]: {wall:.3f} s; generation "
+          f"launches {counts}; training [batch {TRAIN_B}, {TRAIN_H}x{TRAIN_W}] iterations 3-{ROUND_ITERS} "
+          f"{run_s_per_iter:.4f} s/iter, steady (6 steps after 4 more) {run['s_per_iter']:.4f} s/iter, peak memory "
+          f"{run['peak_gb']:.3f} GB, {run['flops'] / 1e12:.3f} TFLOP per step, MFU {mfu:.4f} of 989 TFLOP/s, "
+          f"device idle share of 3 profiled steps at least {run['idle']:.3f}; moved (max |diff| from step 0): "
+          f"student {moved['student']:.4g}, teacher {moved['teacher']:.4g}; validation of the teacher "
+          f"[{len(val_names)} images {VAL_H}x{VAL_W} at {H}x{W}, {len(preds)} colour masks checked] miou "
+          f"{result['miou']:.4f}, {val_rate:.3f} images/s; on {card_line()}")
+    return {"counts": counts, "s_per_iter": run["s_per_iter"], "peak_gb": run["peak_gb"], "mfu": mfu,
+            "idle": run["idle"], "flops": run["flops"], "val_rate": val_rate, "wall": wall}
 
 
 def policy_phase(torch, work: str, pth: str) -> None:
@@ -2123,7 +2303,7 @@ def main(argv: list[str]) -> int:
     torch.backends.cudnn.allow_tf32 = False
     work = os.path.join(REPO, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
-    kernels = kernel_phase(torch)
+    kernels = kernel_phase(torch, hw_low4=(H // 4, W // 4))
     kernels_c9 = kernel_phase(torch, OX_C, (OX_H, OX_W), (OX_LOW_H, OX_LOW_W), oxford_shares())
     kernels_c7 = kernel_phase(torch, 7, (96, 160), (24, 40), timed=False)  # the generic instantiation
     deeplab_rate = slice_phase(torch, work, profile)
@@ -2164,6 +2344,12 @@ def main(argv: list[str]) -> int:
               f"{ROUND_ITERS} iterations, DeepLab-v2/R101, on {card})")
     for name in ("ias_hist", "ias_select"):  # the main path: the round driver's two generations
         counts[name] = rounds["counts"][name]
+    v3plus = v3plus_phase(torch, work, (os.path.join(work, "hiast.json"), os.path.join(work, "hiast")),
+                          (os.path.join(work, "val.json"), os.path.join(work, "val")), pth, profile)
+    print(f"DeepLab-v3+ round warm: training {v3plus['s_per_iter']:.4f} s/iter, peak memory "
+          f"{v3plus['peak_gb']:.3f} GB, {v3plus['flops'] / 1e12:.3f} TFLOP a step, MFU {v3plus['mfu']:.4f}, device "
+          f"idle at least {v3plus['idle']:.3f}; validation {v3plus['val_rate']:.3f} images/s (batch {TRAIN_B}, "
+          f"{TRAIN_H}x{TRAIN_W}, DeepLab-v3+/R101, on {card})")
     policy_phase(torch, work, pth)
 
     warm = warmup_phase(torch, work, pth, profile)
@@ -2196,8 +2382,8 @@ def main(argv: list[str]) -> int:
         if name in ("ias_hist", "ias_select"):  # the other paths that launch them, and the 9-class times
             c9 = kernels_c9[name]
             rows[-1].update(
-                launches_by_path={"round_driver": counts[name], "handoff": handoff["counts"][name],
-                                  "oxford": oxford["counts"][name]},
+                launches_by_path={"round_driver": counts[name], "deeplab_v3plus": v3plus["counts"][name],
+                                  "handoff": handoff["counts"][name], "oxford": oxford["counts"][name]},
                 c9={"shape": [B, OX_C, OX_H, OX_W], "ms": c9["ms"], "plain_ms": c9["plain_ms"],
                     "bound_ms": c9["bound_ms"], "max_abs_err": c9["max_abs_err"]},
                 c7_max_abs_err=kernels_c7[name]["max_abs_err"],

@@ -29,7 +29,7 @@ from hiast_tpu_torch.registry import PSEUDO_POLICY
 from hiast_tpu_torch.selftrain.steps import normalize_image
 from hiast_tpu_torch.utils.checkpoint import load_weights
 
-INIT_SEED = 0  # random weights when no checkpoint is given
+INIT_SEED = 0  # the initialisation a checkpoint then overwrites, in whole or in part
 
 
 def make_forward(cfg, segmentor, device: torch.device):
@@ -91,11 +91,13 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
 
     segmentor = build_segmentor(cfg)
+    # seeded first, as the JAX CLI initialises before a partial load: a
+    # DeepLab-v2 checkpoint fills only DeepLab-v3+'s trunk
+    segmentor.module.init_weights(torch.Generator().manual_seed(INIT_SEED))
     if cfg.pseudo_policy.resume_from:
         load_weights(cfg.pseudo_policy.resume_from, segmentor.module)
     else:
         warnings.warn("no --pseudo_resume_from given: generating from RANDOM weights")
-        segmentor.module.init_weights(torch.Generator().manual_seed(INIT_SEED))
     segmentor.module.to(device).eval()
 
     h, w = cfg.pseudo_policy.resize_size

@@ -4,7 +4,8 @@ The port's replacement for what ``hiast_tpu/data/native_ops.py`` gives the
 data path, without a C++ library that needs zlib's headers:
 
 - ``encode_png`` writes 8- or 16-bit gray, gray+alpha, RGB or RGBA images,
-  and 8-bit palette images, with the first row unfiltered and every later
+  and palette images at the bit depth PIL picks for the palette's length
+  (1, 2, 4 or 8 bits), with the first row unfiltered and every later
   row Up-filtered, deflated at zlib level 1 — the layout of the JAX
   package's native label encoder (label maps are mostly runs, so Up rows
   deflate to almost nothing).
@@ -54,7 +55,9 @@ def encode_png(arr: np.ndarray, level: int = 1, palette: np.ndarray | None = Non
     """uint8 or uint16 [H, W] or [H, W, C] (C in 1..4) -> PNG bytes, at 8
     or 16 bits a sample (16-bit samples stored big-endian).  With
     ``palette`` (uint8 [N, 3]) a uint8 [H, W] array is written as the
-    indices of an 8-bit palette image."""
+    indices of a palette image at the depth PIL's PNG writer picks for N
+    entries: 1 bit up to 2, 2 up to 4, 4 up to 16, else 8.  Below 8 bits an
+    index keeps its low bits, as in PIL's file (255 is 15 at 4 bits)."""
     depth = 16 if arr.dtype == np.uint16 else 8
     arr = np.ascontiguousarray(arr, ">u2" if depth == 16 else np.uint8)
     if arr.ndim == 2:
@@ -63,16 +66,22 @@ def encode_png(arr: np.ndarray, level: int = 1, palette: np.ndarray | None = Non
         raise ValueError(f"cannot encode an array of shape {arr.shape} as PNG")
     h, w, c = arr.shape
     rows = arr.reshape(h, w * c).view(np.uint8)
+    colour, plte = _COLOUR_TYPE[c], b""
+    if palette is not None:
+        if depth != 8 or c != 1:
+            raise ValueError("a palette image holds uint8 [H, W] indices")
+        palette = np.ascontiguousarray(palette, np.uint8).reshape(-1, 3)
+        colour, plte = 3, _chunk(b"PLTE", palette.tobytes())
+        n = len(palette)
+        depth = 1 if n <= 2 else 2 if n <= 4 else 4 if n <= 16 else 8
+        if depth < 8:  # most significant bits first, each row padded to a byte
+            bits = np.unpackbits(rows[:, :, None], axis=2)[:, :, 8 - depth:]
+            rows = np.packbits(bits.reshape(h, w * depth), axis=1)
     raw = np.empty((h, rows.shape[1] + 1), np.uint8)
     raw[:, 0] = 2  # Up
     raw[0, 0] = 0  # None: the first row has no row above it
     raw[0, 1:] = rows[0]
     np.subtract(rows[1:], rows[:-1], out=raw[1:, 1:])  # wraps mod 256
-    colour, plte = _COLOUR_TYPE[c], b""
-    if palette is not None:
-        if depth != 8 or c != 1:
-            raise ValueError("a palette image holds uint8 [H, W] indices")
-        colour, plte = 3, _chunk(b"PLTE", np.ascontiguousarray(palette, np.uint8).tobytes())
     header = struct.pack(">IIBBBBB", w, h, depth, colour, 0, 0, 0)
     return (
         _SIGNATURE

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from hiast_tpu_torch.data.pipeline import pad_batch
+from hiast_tpu_torch.data.png import encode_png
 from hiast_tpu_torch.ops.metrics import intersection_and_union, iou_from_areas, synthia_mious
 from hiast_tpu_torch.ops.resize import bilinear_resize
 from hiast_tpu_torch.selftrain.steps import normalize_image
@@ -35,13 +36,13 @@ PALETTE_9 = [
 ]
 
 
-def colorize_mask(mask: np.ndarray, num_classes: int):
-    from PIL import Image  # colour export is off by default; the card's host has no PIL
-
+def colorize_mask(mask: np.ndarray, num_classes: int) -> bytes:
+    """A predicted [H, W] class map -> the PNG bytes of the palette image
+    that the JAX package writes with PIL (``Image.putpalette`` of the 19 or
+    9 class colours, then ``save``): the class colours as PLTE, 8-bit
+    indices for 19 classes, 4-bit for 9 (indices keep their low bits)."""
     palette = {19: PALETTE_19, 9: PALETTE_9}[num_classes]
-    img = Image.fromarray(mask.astype(np.uint8)).convert("P")
-    img.putpalette(palette)
-    return img
+    return encode_png(mask.astype(np.uint8), palette=np.asarray(palette, np.uint8))
 
 
 def make_val_step(segmentor, resize_size, num_classes: int, dtype: torch.dtype = torch.bfloat16) -> Callable:
@@ -155,9 +156,8 @@ class Validator:
         if self.color_dir:
             for batch_preds, paths in preds[0]:
                 for pred, path in zip(batch_preds, paths):
-                    colorize_mask(pred, self.cfg.dataset.num_classes).save(
-                        os.path.join(self.color_dir, os.path.basename(path))
-                    )
+                    with open(os.path.join(self.color_dir, os.path.basename(path)), "wb") as f:
+                        f.write(colorize_mask(pred, self.cfg.dataset.num_classes))
         result = {"iou": iou, "miou": miou}
         if self.cfg.dataset.source.type and "SYNTHIA" in self.cfg.dataset.source.type:
             miou_16, miou_13 = synthia_mious(iou)

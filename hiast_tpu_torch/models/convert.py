@@ -6,7 +6,9 @@ weights across:
 
 - ``flax_to_port_state_dict``: the JAX package's ``{'params',
   'batch_stats'}`` tree (numpy leaves) -> a state_dict the port's
-  ``DeepLabV2`` loads with ``strict=True``.  Key mapping (flax -> torch):
+  ``DeepLabV2`` or ``DeepLabV3Plus`` loads with ``strict=True``.  Key
+  mapping (flax -> torch; the v3+ head's flax names, ``aspp/branch0/conv``,
+  ``low_proj/bn``, ``classifier``, carry over as they are):
 
       params/backbone/layer3_5/conv2/kernel -> backbone.layer3.5.conv2.weight
       params/backbone/bn1/scale|bias        -> backbone.bn1.weight|bias

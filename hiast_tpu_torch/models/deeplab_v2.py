@@ -58,13 +58,14 @@ class DeepLabV2(nn.Module):
 @torch.no_grad()
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded random initialisation drawn from ``generator``: He-normal convs
-    (fan-in), N(0, 0.01) ASPP kernels as in the JAX package, zero biases,
+    (fan-in), N(0, 0.01) kernels for the classifying convs as in the JAX
+    package (DeepLab-v2's ASPP, DeepLab-v3+'s ``classifier``), zero biases,
     identity BatchNorm except the last BN of each residual branch, scaled to
     0.1 so that a random 101-layer trunk keeps its activations, and so its
     logits and confidences, in a realistic range."""
     for name, m in module.named_modules():
         if isinstance(m, nn.Conv2d):
-            if ".conv2d_list." in f".{name}.":
+            if ".conv2d_list." in f".{name}." or name == "classifier":
                 std = 0.01
             else:
                 std = (2.0 / (m.in_channels * m.kernel_size[0] * m.kernel_size[1])) ** 0.5

@@ -92,9 +92,10 @@ class ResNetOS8(nn.Module):
             inplanes = planes * 4
             self.add_module(f"layer{idx + 1}", nn.Sequential(*blocks))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, return_low: bool = False):
+        """[B, 2048, H/8, W/8]; with ``return_low`` also layer1's output,
+        the 256-channel stride-4 feature DeepLab-v3+'s decoder reads."""
         x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
-        x = self.layer1(x)
-        x = self.layer2(x)
-        x = self.layer3(x)
-        return self.layer4(x)  # [B, 2048, H/8, W/8]
+        low = self.layer1(x)
+        x = self.layer4(self.layer3(self.layer2(low)))
+        return (x, low) if return_low else x

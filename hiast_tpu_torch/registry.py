@@ -56,6 +56,7 @@ def populate() -> None:
 
     for mod in (
         "hiast_tpu_torch.models.deeplab_v2",
+        "hiast_tpu_torch.models.deeplab_v3plus",
         "hiast_tpu_torch.models.segformer",
         "hiast_tpu_torch.models.segmentors",
         "hiast_tpu_torch.data.datasets",

@@ -38,6 +38,9 @@ log = logging.getLogger("hiast_tpu_torch")
 def load_weights(path: str, module: nn.Module) -> nn.Module:
     """Load a torch ``.pth`` state_dict into ``module`` (in place).
 
+    Entries the file lacks keep their values: a DeepLab-v2 ``.pth`` loads
+    into DeepLab-v3+'s trunk and leaves its head at its initialisation.
+
     A HuggingFace Segformer checkpoint (``segformer.*`` keys) is renamed
     first, as the JAX package's ``load_weights`` detects it; a mmseg / NVlabs
     SegFormer ``.pth`` already has the port's names."""
@@ -62,8 +65,8 @@ def load_weights(path: str, module: nn.Module) -> nn.Module:
         target[key] = value.to(target[key].dtype)
         matched += 1
     log.info(
-        "load %s: matched %d / %d module entries (%d shape-mismatched)",
-        path, matched, len(target), len(skipped),
+        "load %s: matched %d / %d module entries (%d shape-mismatched); %d left at their initial values",
+        path, matched, len(target), len(skipped), len(target) - matched,
     )
     for key, got, want in skipped[:10]:
         log.warning("  shape mismatch at %s: ckpt %s vs model %s", key, got, want)

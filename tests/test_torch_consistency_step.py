@@ -107,12 +107,12 @@ def _batch(seed=3):
     }
 
 
-def _jax_run(settings, batches):
+def _jax_run(settings, batches, init_key=INIT_KEY):
     """(initial variables, [(state, losses) after each step]) of the JAX step."""
     jax_populate()
     cfg = _configure(jax_default_config(), settings)
     segmentor = jax_build_segmentor(cfg, dtype=jnp.float32, backbone_layers=LAYERS)
-    variables = segmentor.init_variables(jax.random.PRNGKey(INIT_KEY), (1, H, W, 3))
+    variables = segmentor.init_variables(jax.random.PRNGKey(init_key), (1, H, W, 3))
     tx = jax_make_optimizer(cfg, variables["params"])
     state = TrainState(
         step=jnp.zeros((), jnp.int32), params=variables["params"], batch_stats=variables["batch_stats"],
@@ -191,9 +191,16 @@ def _check_losses(got, want):
 
 
 def test_one_step_matches_jax():
-    settings = _settings()
+    check_one_step(_settings())
+
+
+def check_one_step(settings, init_key=INIT_KEY, by_cosine=("backbone.",)):
+    """One consistency step of the port against JAX's from the same
+    variables: the losses, every gradient, the BatchNorm statistics and
+    the EMA (the module docstring's tolerances).  The gradients of the
+    parameters named with a prefix in ``by_cosine`` are held by cosine."""
     batch = _batch()
-    init, [(state, want_losses)] = _jax_run(settings, [batch])
+    init, [(state, want_losses)] = _jax_run(settings, [batch], init_key)
     segmentor, ema, _, step = _port(settings, init)
     count = StepCount()
     losses = step(_to_torch(batch), count)
@@ -207,18 +214,18 @@ def test_one_step_matches_jax():
     jgrads = flax_to_port_state_dict({"params": jax.tree_util.tree_map_with_path(grad, init["params"], state.params)})
     module = segmentor.module
     params = dict(module.named_parameters())
-    n_frozen = n_backbone = 0
+    n_frozen = n_cosine = 0
     for name, p in params.items():
         if not p.requires_grad:  # frozen BatchNorm affine: no update on either side
             assert p.grad is None and float(jgrads[name].abs().max()) == 0.0, name
             n_frozen += 1
-        elif name.startswith("backbone."):
+        elif name.startswith(by_cosine):
             cos = torch.nn.functional.cosine_similarity(p.grad.double().flatten(), jgrads[name].double().flatten(), dim=0)
             assert float(cos) >= 0.9999, f"grad {name}: cosine {float(cos)}"
-            n_backbone += 1
+            n_cosine += 1
         else:
             _within(p.grad, jgrads[name].numpy(), f"grad {name}")
-    assert n_frozen > 0 and n_backbone > 0
+    assert n_frozen > 0 and n_cosine > 0
 
     want_stats = flax_to_port_state_dict({"params": state.params, "batch_stats": state.batch_stats})
     n_stats = 0

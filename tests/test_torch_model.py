@@ -26,9 +26,10 @@ from hiast_tpu_torch.models.deeplab_v2 import DeepLabV2, init_weights
 from hiast_tpu_torch.utils.checkpoint import load_weights
 
 
-def _jax_variables(layers, seed):
-    """JAX DeepLab-v2 variables as numpy, with non-trivial BatchNorm."""
-    model = JaxDeepLabV2(num_classes=19, backbone_layers=layers)
+def _jax_variables(layers, seed, model_cls=JaxDeepLabV2):
+    """JAX DeepLab variables (v2 unless ``model_cls`` says otherwise) as
+    numpy, with non-trivial BatchNorm."""
+    model = model_cls(num_classes=19, backbone_layers=layers)
     variables = jax.jit(
         lambda k: model.init(k, jnp.zeros((1, 33, 33, 3)), train=False, return_representation=True)
     )(jax.random.PRNGKey(seed))

@@ -15,9 +15,17 @@ cli/validate.py) against the JAX package's, on the CPU.
   their trunk in bf16, rounding at other places, so the IoUs are held to a
   bound measured on this fixture with a margin: per-class IoU within 0.02
   and mIoU within 0.005 (measured: 2e-5 and below 1e-5).
+- The colour masks: the port's ``colorize_mask`` (no PIL) against the JAX
+  package's, which PIL writes, for 19 and 9 classes with pixel 255 present,
+  both files read back by PIL: the same mode, indices, palette and RGB
+  (exact).  ``cli.validate --device cpu`` with ``validate.color_mask_dir_path``
+  in a process where ``import PIL`` fails writes one mask per val image
+  under its basename, holding that image's prediction.
 """
 import json
 import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -194,3 +202,69 @@ def test_validate_cli_synthia_report_and_errors(val_root, tmp_path, capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):  # the default is the card
             port_cli.main(["--validate_resume_from", pth, *_val_overrides(val_root)])
+
+
+@pytest.mark.parametrize("num_classes", [19, 9])
+def test_color_mask_matches_pil(num_classes, tmp_path):
+    from PIL import Image
+
+    from hiast_tpu.evaluation import colorize_mask as jax_colorize_mask
+    from hiast_tpu_torch.data.png import decode_png_file
+    from hiast_tpu_torch.evaluation import PALETTE_9, PALETTE_19, colorize_mask
+
+    mask = RNG.integers(0, num_classes, size=(37, 51)).astype(np.uint8)  # odd width: 4-bit rows end mid-byte
+    mask[0, :num_classes] = np.arange(num_classes)
+    mask[5:9, 7:20] = 255  # ignore
+    pil_path, port_path = str(tmp_path / "pil.png"), str(tmp_path / "port.png")
+    jax_colorize_mask(mask, num_classes).save(pil_path)
+    with open(port_path, "wb") as f:
+        f.write(colorize_mask(mask, num_classes))
+    pil, port = Image.open(pil_path), Image.open(port_path)
+    assert port.mode == pil.mode == "P"
+    np.testing.assert_array_equal(np.array(port), np.array(pil))
+    assert port.getpalette() == pil.getpalette()
+    rgb = np.array(pil.convert("RGB"))
+    np.testing.assert_array_equal(np.array(port.convert("RGB")), rgb)
+    # the port's decoder reads the same indices; a class pixel has its colour
+    idx = decode_png_file(port_path, palette=False)
+    np.testing.assert_array_equal(idx, np.array(pil))
+    palette = np.asarray({19: PALETTE_19, 9: PALETTE_9}[num_classes], np.uint8).reshape(-1, 3)
+    cls = mask != 255
+    np.testing.assert_array_equal(idx[cls], mask[cls])
+    np.testing.assert_array_equal(rgb[cls], palette[mask[cls]])
+
+
+def test_validate_cli_writes_color_masks_without_pil(val_root, tmp_path):
+    pth = str(tmp_path / "w.pth")
+    _shared_pth(pth)
+    color_dir = tmp_path / "colors"
+    argv = ["--device", "cpu", "--validate_resume_from", pth, *_val_overrides(val_root),
+            "validate.color_mask_dir_path", str(color_dir)]
+    code = (
+        "import sys; sys.modules['PIL'] = None\n"
+        "import numpy as np, torch\n"
+        "torch.set_num_threads(2)\n"
+        "from hiast_tpu_torch import evaluation\n"
+        "from hiast_tpu_torch.cli import validate\n"
+        "colorize, preds = evaluation.colorize_mask, []\n"
+        "evaluation.colorize_mask = lambda m, n: preds.append(m) or colorize(m, n)\n"
+        f"validate.main({argv!r})\n"
+        f"np.save({str(tmp_path / 'preds.npy')!r}, np.stack(preds))\n"
+        "assert sys.modules['PIL'] is None\n"
+    )
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=repo, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    from hiast_tpu_torch.data.png import decode_png_file
+    from hiast_tpu_torch.evaluation import PALETTE_19
+
+    with open(val_root / "cityscapes_val.json") as f:
+        names = [os.path.basename(e["image_name"]) for e in json.load(f)]
+    preds = np.load(tmp_path / "preds.npy")
+    assert sorted(os.listdir(color_dir)) == sorted(names) and preds.shape == (len(names), 64, 128)
+    palette = np.asarray(PALETTE_19, np.uint8).reshape(-1, 3)
+    for name, pred in zip(names, preds):
+        np.testing.assert_array_equal(decode_png_file(str(color_dir / name), palette=False), pred, err_msg=name)
+        np.testing.assert_array_equal(decode_png_file(str(color_dir / name)), palette[pred], err_msg=name)
