@@ -102,6 +102,18 @@
    round's pseudo-labels from ``ema_model_last.pth`` over the 12 images
    (launches: ias_hist 6, ias_select 6), and checks that PIL was never
    imported.
+8b. The directional-consistency loss and the preprocessors, on phase 8's
+   data: ``cli.train`` with phase 8's arguments and
+   ``cst_training.dcst_loss.weight`` 0.5 for 4 iterations (the copy-paste
+   mask replayed onto each crop); checks that no kernel launched, that
+   ``dcst_loss`` is finite in every iteration and above 0 in one, and
+   that every batch pasted; then 3 samples of the trainer's dataset and 3
+   each through ``ClassMix`` and ``CutMix`` (dcst on, 'MS'): the mask on
+   the 512x1024 crop and ``labels == mask`` wherever the mask is not 255;
+   ``fda_device`` on the card at [6, 512, 1024, 3] against its CPU result
+   (tolerance ``FDA_TOL``, the largest difference printed) and its device
+   ms; prints s/iter and the host ms of a sample with and without the
+   replay.
 9. The main path end to end, the round driver: seeded random full-width
    DeepLab-v2/R101 weights as one ``.pth`` (warmup student and teacher); a
    configs dir whose ``sl_1.yaml`` and ``sl_2.yaml`` are the port's shipped
@@ -147,7 +159,23 @@
    histogram over the same forwards' logits) and IAS with ``ms_sizes``
    [[576, 1152], [768, 1536], [960, 1920]] and flip (2 and 2); each prints
    images/s.
-12. The warmup stage, the handoff and the Oxford round:
+12. The mutual round: ``cli.run_rounds --rounds 1`` from phase 9's seeded
+   ``.pth`` (warmup student and teacher) with the shipped ``sl_1.yaml``
+   (paths, work dir, 8 iterations, validation at the 8th) and a setting
+   file written to the work dir (``MUTUAL_SETTING``:
+   ``MutualLearningTrainer``, 'MS' + 'CCA', ``mut_training`` on with
+   ``is_strong_input``, the mutual loss 0.1 on the ignored region, the
+   peer from a second seeded R101 ``.pth``) on phase 8's 12 images and the
+   4 val images.  Checks that before step 1 the student equals the first
+   ``.pth`` and the peer the second, ias_hist 6 and ias_select 6 in the
+   generation and none in training, the six artifacts, ``model_last.pth``
+   at step 8 holding ``peer_state_dict`` and ``peer_optimizer``, finite
+   losses (``mut_loss`` and ``peer_mut_loss`` among them), both students
+   moved, and the peer's validation record in ``train.log``; prints
+   steady s/iter (the last 4 iterations), TFLOP a step
+   (``mutual_step_flops``), MFU, peak memory and the idle share of 3
+   profiled steps.
+13. The warmup stage, the handoff and the Oxford round:
    a. The adversarial warmup (GTA5 -> Cityscapes): 12 synthetic GTA5-sized
       frames (1052x1914) with 8-bit palette labels in GTA ids, phase 8's
       12 target images and the 4 val images; ``cli.train.main`` with the
@@ -177,14 +205,15 @@
       ias_select 6 at C = 9), 4 iterations of ``SelfTrainingTrainer`` on
       'OMS' 768x1024 crops, then ``cli.validate`` with the 9-class
       protocol; prints images/s and s/iter.
-13. Prints one JSON line of the kernels, the card line again, and last
+14. Prints one JSON line of the kernels, the card line again, and last
    ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` are those of
    the path it serves in this run: ``ias_hist``/``ias_select`` from the
    round driver's two generations (the main path; their times from the
    peaked input), ``sra_attention`` and
    ``sra_attention_bwd`` from the SegFormer training run.  The IAS rows
    also carry ``launches_by_path`` (the round driver, the DeepLab-v3+
-   round, the handoff round, the Oxford generation) and ``c9``, the times
+   round, the mutual round, the handoff round, the Oxford generation) and
+   ``c9``, the times
    at [2, 9, 768, 1280].  For
    ``sra_attention`` the
    times are per batch of the serving path (each stage's time times its
@@ -1334,6 +1363,105 @@ def consistency_phase(torch, work: str, profile: bool) -> dict:
             "cca_ms": cca_ms, "ema_ms": ema_ms, "idle": idle}
 
 
+DCST_ITERS = 4  # iterations of the dcst run (phase 8b)
+FDA_TOL = 0.02  # fda_device on the card against the CPU: two float32 FFT libraries, values 0..255
+
+
+def replay_checks(dataset, n: int, tag: str) -> None:
+    """``n`` samples of ``dataset`` (a preprocessor set, dcst on): the
+    ``copy_paste_mask`` on the 512x1024 crop, pasted pixels in at least one,
+    and ``labels == mask`` wherever the mask is not 255."""
+    pasted = 0
+    for i in range(n):
+        sample = dataset.get_item(i, np.random.default_rng((17, 0, i)))
+        mask, lbl = sample["copy_paste_mask"], sample["labels"]
+        check(mask.shape == lbl.shape == (TRAIN_H, TRAIN_W), f"{tag} sample {i}: mask {mask.shape}, label {lbl.shape}")
+        on = mask != 255
+        check(np.array_equal(lbl[on], mask[on]), f"{tag} sample {i}: the labels differ from the replayed mask")
+        pasted += int(on.sum())
+    check(pasted > 0, f"{tag}: no sample pasted a pixel")
+    print(f"{tag}: {n} samples, the replayed mask equals the labels on its {pasted} pasted pixels")
+
+
+def host_sample_ms(dataset, n: int = 3) -> float:
+    """Median host ms of one sample of ``dataset`` over ``n`` indices."""
+    times = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        dataset.get_item(i, np.random.default_rng((18, 0, i)))
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def dcst_phase(torch, work: str) -> dict:
+    """Phase 8b: the directional-consistency loss and the preprocessors on
+    phase 8's data.  ``cli.train`` with phase 8's arguments and
+    ``cst_training.dcst_loss.weight`` 0.5 for DCST_ITERS iterations (the
+    copy-paste mask replayed onto the crop, the loss against the teacher on
+    the pasted pixels); the replayed mask on 3 of the trainer's samples and
+    on 3 samples each through ``ClassMix`` and ``CutMix``; ``fda_device``
+    on the card at [6, 512, 1024, 3] against its CPU result.  Returns the
+    rates."""
+    import copy
+
+    from hiast_tpu_torch.cli import train as cli_train
+    from hiast_tpu_torch.data.datasets import build_dataset
+    from hiast_tpu_torch.ops.fda import fda_device
+    from hiast_tpu_torch.registry import PREPROCESSOR
+
+    json_path, image_dir = os.path.join(work, "hiast.json"), os.path.join(work, "hiast")
+    pseudo_dir = os.path.join(work, "hiast_round0", "pseudo_label", "gray_label")
+    val_json, val_dir = os.path.join(work, "val.json"), os.path.join(work, "val")
+    train_dir = os.path.join(work, "dcst_run")
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer = cli_train.main(hiast_argv(train_dir, pseudo_dir, json_path, image_dir, val_json, val_dir, DCST_ITERS)
+                             + ["cst_training.dcst_loss.weight", "0.5"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(all(v == 0 for v in read_counts().values()), f"dcst training launched kernels: {read_counts()}")
+    losses = trainer.loss_log
+    check(len(losses) == DCST_ITERS and all("dcst_loss" in step and np.isfinite(step["dcst_loss"]) for step in losses)
+          and all(np.isfinite(v) for step in losses for v in step.values()), f"dcst training losses {losses}")
+    check(max(step["dcst_loss"] for step in losses) > 0, f"dcst_loss is 0 in every iteration: {losses}")
+    check(min(trainer.paste_shares) > 0, f"pasted-pixel shares {trainer.paste_shares}")
+    times = trainer.iter_times
+    s_per_iter = (times[-1] - times[1]) / (len(times) - 2)
+    for i, step in enumerate(losses, 1):
+        print(f"dcst iter {i}: " + ", ".join(f"{k} {v:.5f}" for k, v in step.items())
+              + f", pasted share {trainer.paste_shares[i - 1]:.4f}")
+
+    dataset = trainer.t_dataset
+    replay_checks(dataset, 3, "CopyPaste + MS, dcst on")
+    plain = copy.copy(dataset)  # the same dataset without the replay
+    plain.cfg = trainer.cfg.clone()
+    plain.cfg.cst_training.dcst_loss.weight = 0.0
+    with_ms, without_ms = host_sample_ms(dataset), host_sample_ms(plain)
+    for kind in ("ClassMix", "CutMix"):
+        ds = build_dataset(trainer.cfg, "target", pseudo_dir=pseudo_dir, unfilter=trainer.unfilter)
+        ds.set_preprocessor(PREPROCESSOR[kind](trainer.cfg, ds))
+        replay_checks(ds, 3, f"{kind} + MS, dcst on")
+    del trainer, dataset, plain
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(19)
+    src, tgt = (torch.from_numpy(rng.integers(0, 256, (TRAIN_B, TRAIN_H, TRAIN_W, 3), dtype=np.uint8))
+                for _ in range(2))
+    want = fda_device(src, tgt)
+    src_d, tgt_d = src.cuda(), tgt.cuda()
+    got = fda_device(src_d, tgt_d)
+    check(got.is_cuda and got.shape == want.shape, "fda_device on the card")
+    fda_err = float((got.cpu() - want).abs().max())
+    check(fda_err <= FDA_TOL, f"fda_device on the card off its CPU result by {fda_err}")
+    fda_ms = device_ms(torch, lambda: fda_device(src_d, tgt_d))
+    print(f"dcst training [{DCST_ITERS} iterations, batch {TRAIN_B}, {TRAIN_H}x{TRAIN_W}, R101, dcst 0.5]: main "
+          f"{wall:.3f} s, iterations 3-{DCST_ITERS} {s_per_iter:.4f} s/iter; host ms a sample (decode, copy-paste, "
+          f"MS) with the mask replay {with_ms:.2f}, without {without_ms:.2f}; fda_device [{TRAIN_B}, {TRAIN_H}, "
+          f"{TRAIN_W}, 3] max |card - CPU| {fda_err:.3g} (tolerance {FDA_TOL}), {fda_ms:.4f} ms on the card; "
+          f"on {card_line()}")
+    return {"s_per_iter": s_per_iter, "host_ms": (with_ms, without_ms), "fda_ms": fda_ms, "fda_err": fda_err}
+
+
 ROUND_ITERS = 4  # a round's iterations in the round-driver phase (8,000 in sl_k.yaml)
 PORT_CONFIGS = os.path.join(REPO, "hiast_tpu_torch", "configs")
 
@@ -1663,6 +1791,161 @@ def v3plus_phase(torch, work: str, target: tuple, val: tuple, pth: str, profile:
           f"{result['miou']:.4f}, {val_rate:.3f} images/s; on {card_line()}")
     return {"counts": counts, "s_per_iter": run["s_per_iter"], "peak_gb": run["peak_gb"], "mfu": mfu,
             "idle": run["idle"], "flops": run["flops"], "val_rate": val_rate, "wall": wall}
+
+
+MUTUAL_ITERS = 8  # iterations of the mutual round (phase 12)
+MUTUAL_SETTING = """trainer: MutualLearningTrainer
+
+dataset:
+  target:
+    aug_type: [MS, CCA]
+
+mut_training:
+  is_enabled: true
+  is_strong_input: true
+  resume_from: '{peer_pth}'
+  mut_loss:
+    weight: 0.1
+    region: ignored
+"""
+
+
+def mutual_step_flops(torch, trainer) -> float:
+    """FLOPs of one mutual step at batch 6 and 512x1024, counted as
+    ``train_step_flops`` counts them: each student's eval forward for the
+    other's target, then its train forward and backward (each
+    convolution's backward as twice its forward); the strong views and the
+    updates left out."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from hiast_tpu_torch.selftrain.steps import _total_loss
+
+    img = torch.zeros(TRAIN_B, 3, TRAIN_H, TRAIN_W, device="cuda")
+    lbl = torch.zeros(TRAIN_B, TRAIN_H, TRAIN_W, dtype=torch.long, device="cuda")
+    students = (trainer.segmentor, trainer.peer_segmentor)
+    with FlopCounterMode(display=False) as counter, torch.no_grad():
+        targets = [torch.softmax(s.forward(img, torch.bfloat16)["logits"], dim=1) for s in students]
+    total = counter.get_total_flops()
+    for student, peer_target in zip(students, targets[::-1]):
+        student.module.train()
+        with FlopCounterMode(display=False) as counter:
+            logits = student.forward(img, torch.bfloat16)["logits"]
+            losses = student.compute_loss(logits, lbl)
+            losses.update(student.compute_mutual_loss(logits, lbl, peer_target))
+            _total_loss(losses).backward()
+        student.module.zero_grad(set_to_none=True)
+        by_op = counter.get_flop_counts()["Global"]
+        conv = by_op.get(torch.ops.aten.convolution, 0)
+        total += counter.get_total_flops() - by_op.get(torch.ops.aten.convolution_backward, 0) + 2 * conv
+    return total
+
+
+def mutual_phase(torch, work: str, target: tuple, val: tuple, pth: str, profile: bool) -> dict:
+    """Phase 12: one mutual-learning round through ``cli.run_rounds
+    --rounds 1`` on full-width DeepLab-v2/R101: the shipped ``sl_1.yaml``
+    (data paths, work dir and schedule changed: MUTUAL_ITERS iterations,
+    validation at the last) with a setting file written to the work dir
+    (``MUTUAL_SETTING``: ``MutualLearningTrainer``, 'MS' + 'CCA', both
+    students on their own strong view, the mutual loss 0.1 on the ignored
+    region), from the round driver phase's seeded ``.pth`` (warmup
+    student and teacher), the peer from a second seeded ``.pth``, on its 12
+    target images and 4 val images.  Returns the launches and the rates."""
+    from hiast_tpu_torch.cli import run_rounds
+    from hiast_tpu_torch.cli import train as cli_train
+    from hiast_tpu_torch.models.deeplab_v2 import DeepLabV2
+    from hiast_tpu_torch.selftrain.trainers import MutualLearningTrainer
+    from hiast_tpu_torch.utils.checkpoint import load_step
+
+    peer_pth = os.path.join(work, "deeplab_r101_peer.pth")
+    model = DeepLabV2(num_classes=C)
+    model.init_weights(torch.Generator().manual_seed(1))
+    torch.save(model.state_dict(), peer_pth)
+    del model
+    configs = os.path.join(work, "configs_mutual")
+    rounds_dir = os.path.join(work, "rounds_mutual")
+    write_shipped_config(configs, "sl_1.yaml", {"target": target, "val": val}, rounds_dir, MUTUAL_ITERS)
+    setting = os.path.join(configs, "mutual_setting.yaml")
+    with open(setting, "w") as f:
+        f.write(MUTUAL_SETTING.format(peer_pth=peer_pth))
+    weights = [torch.load(p, map_location="cpu", weights_only=True) for p in (pth, peer_pth)]
+    built = {}  # both students as the trainer built them, before step 1
+
+    build_extra_state = MutualLearningTrainer.build_extra_state
+
+    def record_built(trainer, full):
+        build_extra_state(trainer, full)
+        for name, module in (("student", trainer.segmentor.module), ("peer", trainer.peer_module)):
+            built[name] = {k: v.detach().cpu().clone() for k, v in module.state_dict().items()}
+
+    train_main, run = cli_train.main, {}
+
+    def train(argv):  # the round's training, a profiled window and the FLOPs
+        torch.cuda.reset_peak_memory_stats()
+        counts_before = read_counts()
+        trainer = train_main(argv)
+        torch.cuda.synchronize()
+        run.update(peak_gb=torch.cuda.max_memory_allocated() / 1e9, losses=trainer.loss_log,
+                   iter_times=trainer.iter_times,
+                   train_counts={k: v - counts_before[k] for k, v in read_counts().items()})
+        run["idle"] = profile_run(torch, "DeepLab-v2/R101 mutual training, 3 steps",
+                                  lambda: trainer_steps(torch, trainer)(3), table=profile)
+        run["flops"] = mutual_step_flops(torch, trainer)
+        del trainer
+        torch.cuda.empty_cache()
+
+    reset_counts()
+    MutualLearningTrainer.build_extra_state, cli_train.main = record_built, train
+    try:
+        t0 = time.perf_counter()
+        run_rounds.main(["--work_dir", rounds_dir, "--warmup_ckpt", pth, "--warmup_pseudo_ckpt", pth,
+                         "--configs_dir", configs, "--setting_file", setting, "--rounds", "1"])
+        wall = time.perf_counter() - t0
+    finally:
+        MutualLearningTrainer.build_extra_state, cli_train.main = build_extra_state, train_main
+    counts = read_counts()
+    n_batches = -(-N_TRAIN_IMAGES // B)
+    check(counts == {"ias_hist": n_batches, "ias_select": n_batches, "sra_attention": 0, "sra_attention_bwd": 0},
+          f"mutual round launch counts {counts}")
+    check(all(v == 0 for v in run["train_counts"].values()), f"mutual training launches {run['train_counts']}")
+    for name, want in zip(("student", "peer"), weights):
+        check(sorted(built[name]) == sorted(want) and all(torch.equal(built[name][k], want[k]) for k in want),
+              f"the {name} before step 1 is its .pth's")
+    check(any(not torch.equal(weights[0][k], weights[1][k]) for k in weights[0]), "the two .pth files are equal")
+
+    round_dir = os.path.join(rounds_dir, "sl_1")
+    ckpt_dir = os.path.join(round_dir, "checkpoints")
+    check_artifacts(os.path.join(round_dir, "pseudo_label", "gray_label"),
+                    [f"hiast_{i}_pseudo_label.png" for i in range(N_TRAIN_IMAGES)])
+    check(load_step(ckpt_dir) == MUTUAL_ITERS, f"mutual model_last.pth at step {load_step(ckpt_dir)}")
+    losses = run["losses"]
+    names = ["ent_ignored_loss", "kld_confident_loss", "mut_loss", "target_seg_loss"]
+    check(len(losses) == MUTUAL_ITERS and sorted(losses[0]) == sorted(names + [f"peer_{k}" for k in names])
+          and all(np.isfinite(v) for step in losses for v in step.values()), f"mutual round losses {losses}")
+    state = torch.load(os.path.join(ckpt_dir, "model_last.pth"), map_location="cpu", weights_only=True, mmap=True)
+    check({"peer_state_dict", "peer_optimizer"} <= set(state), f"model_last.pth keys {sorted(state)}")
+    moved = {}
+    for name, sd, want in (("student", state["state_dict"], weights[0]), ("peer", state["peer_state_dict"], weights[1])):
+        moved[name] = max(float((sd[k].float() - want[k].float()).abs().max()) for k in want
+                          if "running_" not in k and "num_batches" not in k)
+    check(moved["student"] > 0 and moved["peer"] > 0, f"both students moved: {moved}")
+    with open(os.path.join(round_dir, "train.log")) as f:
+        log = f.read()
+    check(f"peer_model, iter: {MUTUAL_ITERS}, miou:" in log, "no peer_model validation record in train.log")
+    del state, weights, built
+    times = run["iter_times"]
+    s_per_iter = (times[-1] - times[-5]) / 4
+    for i, step in enumerate(losses, 1):
+        print(f"mutual round iter {i}: " + ", ".join(f"{k} {v:.5f}" for k, v in step.items()))
+    mfu = run["flops"] / s_per_iter / BF16_FLOPS_PER_S
+    print(f"mutual round [run_rounds --rounds 1, sl_1.yaml + mutual_setting.yaml, {MUTUAL_ITERS} iterations]: "
+          f"{wall:.3f} s; generation launches {counts}; training [two students, batch {TRAIN_B}, {TRAIN_H}x{TRAIN_W}, "
+          f"R101, CCA views] steady (the last 4 iterations) {s_per_iter:.4f} s/iter, peak memory "
+          f"{run['peak_gb']:.3f} GB, {run['flops'] / 1e12:.3f} TFLOP per step, MFU {mfu:.4f} of 989 TFLOP/s, device "
+          f"idle share of 3 profiled steps at least {run['idle']:.3f}; moved (max |diff| from its .pth): student "
+          f"{moved['student']:.4g}, peer {moved['peer']:.4g}; peer validated at iteration {MUTUAL_ITERS}; on "
+          f"{card_line()}")
+    return {"counts": counts, "s_per_iter": s_per_iter, "peak_gb": run["peak_gb"], "mfu": mfu,
+            "flops": run["flops"], "idle": run["idle"], "wall": wall}
 
 
 def policy_phase(torch, work: str, pth: str) -> None:
@@ -2328,6 +2611,10 @@ def main(argv: list[str]) -> int:
           f"DeepLab-v2/R101, on {card})")
     check(hiast["counts"]["ias_hist"] == hiast["counts"]["ias_select"] == -(-N_TRAIN_IMAGES // B),
           f"generation from the consistency run's teacher: launches {hiast['counts']}")
+    dcst = dcst_phase(torch, work)
+    print(f"dcst training warm: {dcst['s_per_iter']:.4f} s/iter; host {dcst['host_ms'][0]:.2f} ms a sample with the "
+          f"mask replay, {dcst['host_ms'][1]:.2f} without; fda_device {dcst['fda_ms']:.4f} ms (batch {TRAIN_B}, "
+          f"{TRAIN_H}x{TRAIN_W}, DeepLab-v2/R101, on {card})")
 
     from hiast_tpu_torch.models.deeplab_v2 import DeepLabV2
 
@@ -2351,6 +2638,11 @@ def main(argv: list[str]) -> int:
           f"idle at least {v3plus['idle']:.3f}; validation {v3plus['val_rate']:.3f} images/s (batch {TRAIN_B}, "
           f"{TRAIN_H}x{TRAIN_W}, DeepLab-v3+/R101, on {card})")
     policy_phase(torch, work, pth)
+    mutual = mutual_phase(torch, work, (os.path.join(work, "hiast.json"), os.path.join(work, "hiast")),
+                          (os.path.join(work, "val.json"), os.path.join(work, "val")), pth, profile)
+    print(f"mutual round warm: training {mutual['s_per_iter']:.4f} s/iter, peak memory {mutual['peak_gb']:.3f} GB, "
+          f"{mutual['flops'] / 1e12:.3f} TFLOP a step, MFU {mutual['mfu']:.4f}, device idle at least "
+          f"{mutual['idle']:.3f} (two students, batch {TRAIN_B}, {TRAIN_H}x{TRAIN_W}, DeepLab-v2/R101, on {card})")
 
     warm = warmup_phase(torch, work, pth, profile)
     print(f"adversarial warmup warm: {warm['s_per_iter']:.4f} s/iter, peak memory {warm['peak_gb']:.3f} GB, "
@@ -2383,7 +2675,8 @@ def main(argv: list[str]) -> int:
             c9 = kernels_c9[name]
             rows[-1].update(
                 launches_by_path={"round_driver": counts[name], "deeplab_v3plus": v3plus["counts"][name],
-                                  "handoff": handoff["counts"][name], "oxford": oxford["counts"][name]},
+                                  "mutual": mutual["counts"][name], "handoff": handoff["counts"][name],
+                                  "oxford": oxford["counts"][name]},
                 c9={"shape": [B, OX_C, OX_H, OX_W], "ms": c9["ms"], "plain_ms": c9["plain_ms"],
                     "bound_ms": c9["bound_ms"], "max_abs_err": c9["max_abs_err"]},
                 c7_max_abs_err=kernels_c7[name]["max_abs_err"],

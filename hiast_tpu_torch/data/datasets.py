@@ -18,9 +18,9 @@ augs).  Label files, per dataset (JAX ``datasets.py:189-335``):
   gray+alpha file's first sample's high byte.
 With a ``pseudo_dir`` the dataset also loads that round's
 ``samples_with_class.json`` (the donor lists copy-paste draws from), and a
-preprocessor (``set_preprocessor``, HPA's ``CopyPaste``) runs on each
-sample before the geometric augs.  A device colour aug in ``aug_type``
-('CCA', 'SCA') is left to the train step.
+preprocessor (``set_preprocessor``: HPA's ``CopyPaste``, ``ClassMix`` or
+``CutMix``) runs on each sample before the geometric augs.  A device colour
+aug in ``aug_type`` ('CCA', 'SCA') is left to the train step.
 Samples leave the host as uint8 [H, W, 3] images and uint8 [H, W] labels,
 batched by ``data/pipeline.py`` exactly as in the JAX package.  PNGs decode
 through the port's codec (``data/png.py``) with the row unfilter the caller
@@ -168,9 +168,13 @@ class BaseDataset:
         """One sample: load, the preprocessor (copy-paste) when one is set,
         then the host geometric augs, all drawing from ``rng`` in the JAX
         package's order.  With a preprocessor the sample also carries its
-        ``copy_paste_mask`` (the pasted donor labels, 255 elsewhere), on the
-        image's grid before the augs, as the JAX package ships it unless the
-        directional-consistency loss (ROADMAP.md item A10) is on.
+        ``copy_paste_mask`` (the pasted donor labels, 255 elsewhere): on
+        the image's grid before the augs, or, with
+        ``cst_training.dcst_loss.weight`` > 0, on the augmented grid.  Then
+        the augs are replayed with the mask in the label's place on a fresh
+        generator that carries ``rng``'s state from before them (the same
+        crops and flips); the replay's image is discarded and ``rng``
+        advances as it does without the replay.
 
         An unreadable file is reported and the neighbouring index is loaded
         instead, as the JAX package does (reference base_dataset.py:81-86)."""
@@ -181,10 +185,20 @@ class BaseDataset:
             index = index - 1 if index > 0 else index + 1
             return self.get_item(index, rng)
         result = {}
+        replay = None
         if self.preprocessor is not None:
-            img, lbl, result["copy_paste_mask"] = self.preprocessor.run(img, lbl, rng)
+            img, lbl, cp_mask = self.preprocessor.run(img, lbl, rng)
+            result["copy_paste_mask"] = cp_mask
+            if self.cfg.cst_training.dcst_loss.weight > 0:
+                replay = np.random.default_rng()
+                replay.bit_generator.state = rng.bit_generator.state
+                img_pre = img
         for fn in self.aug_fns:
             img, lbl = fn(img, lbl, rng)
+        if replay is not None:
+            for fn in self.aug_fns:
+                img_pre, cp_mask = fn(img_pre, cp_mask, replay)
+            result["copy_paste_mask"] = cp_mask
         result["images"] = np.ascontiguousarray(img)
         result["labels"] = np.ascontiguousarray(lbl)
         result["image_paths"] = img_path

@@ -6,9 +6,10 @@ autograd wherever the caller has it on (a train step); the eval paths wrap
 them in ``torch.inference_mode``.  ``SourceOnlySegmentor.compute_loss`` is
 the supervised source loss; ``SelfTrainingSegmentor.compute_loss`` the
 self-training objective with its consistency term against a teacher
-target; ``AdversarialWarmupSegmentor`` holds the domain discriminator and
-the generator's and the discriminator's losses.  The
-directional-consistency loss comes with its slice.
+target, the directional-consistency loss on copy-pasted pixels and the
+mutual-learning loss against a peer's target; ``AdversarialWarmupSegmentor``
+holds the domain discriminator and the generator's and the discriminator's
+losses.
 """
 from __future__ import annotations
 
@@ -73,15 +74,8 @@ class SelfTrainingSegmentor(BaseSegmentor):
     """HIAST loss assembly (reference self_training_segmentor.py:30-53):
     pseudo-label CE + KLD-to-uniform on the confident region + entropy
     sharpening on the ignored region + the consistency loss against a
-    teacher target."""
-
-    def __init__(self, cfg):
-        if cfg.cst_training.dcst_loss.weight > 0:
-            raise NotImplementedError(
-                "cst_training.dcst_loss (the directional-consistency loss on copy-pasted "
-                "regions) is ROADMAP.md item A10: not ported yet; train with its weight 0"
-            )
-        super().__init__(cfg)
+    teacher target.  The consistency step adds the directional-consistency
+    loss, the mutual step the mutual loss."""
 
     def compute_loss(self, t_logits: torch.Tensor, t_plbl: torch.Tensor,
                      t_cst_lbl: torch.Tensor | None = None) -> dict:
@@ -104,6 +98,44 @@ class SelfTrainingSegmentor(BaseSegmentor):
                 t_logits, t_cst_lbl, refer_labels=t_plbl, region=cst.cst_loss.region,
             )
         return losses
+
+    def compute_directional_consistency_loss(self, logits_a: torch.Tensor, logits_b: torch.Tensor,
+                                             cp_mask: torch.Tensor, bidirectional: bool = True) -> dict:
+        """Pixel-level directional consistency on the copy-pasted pixels
+        (``cp_mask != 255``; JAX ``compute_directional_consistency_loss``,
+        reference self_training_segmentor.py:85-117): where view a is the
+        less confident (max softmax), it takes SoftCE against view b's
+        softmax, the target without gradient; with ``bidirectional`` the
+        other direction is added (False when b is a teacher).  NCHW logits,
+        [B, H, W] mask; an empty region gives exactly 0."""
+        prob_a = torch.softmax(logits_a, dim=1)
+        prob_b = torch.softmax(logits_b, dim=1)
+        conf_a, conf_b = prob_a.amax(1), prob_b.amax(1)
+        pasted = cp_mask != 255
+
+        def one_direction(logits_src, prob_tgt, src_worse):
+            region = (pasted & src_worse).long()  # 1 in the region, 0 (the ignore index) outside
+            return LOSS["SoftCE"](logits_src, prob_tgt.detach(), refer_labels=region, region="confident",
+                                  ignore_index=0)
+
+        loss = one_direction(logits_a, prob_b, conf_a < conf_b)
+        if bidirectional:
+            loss = loss + one_direction(logits_b, prob_a, conf_b < conf_a)
+        return {"dcst_loss": self.cfg.cst_training.dcst_loss.weight * loss}
+
+    def compute_mutual_loss(self, t_logits: torch.Tensor, t_plbl: torch.Tensor, t_mut_lbl: torch.Tensor) -> dict:
+        """The mutual-learning loss against a peer's target ``t_mut_lbl``
+        (hard labels for a 'CE' consistency loss, an NCHW probability map
+        otherwise; JAX ``compute_mutual_loss``, the reference's latent
+        ``mut_training``, self_training_segmentor.py:55-61): the
+        consistency loss's type, on ``mut_training.mut_loss.region`` of
+        the pseudo-labels."""
+        mut = self.cfg.mut_training
+        if not (mut.is_enabled and mut.mut_loss.weight > 0):
+            return {}
+        return {"mut_loss": mut.mut_loss.weight * LOSS[self.cfg.cst_training.cst_loss.type](
+            t_logits, t_mut_lbl, refer_labels=t_plbl, region=mut.mut_loss.region,
+        )}
 
 
 @MODEL.register("AdversarialWarmupSegmentor")

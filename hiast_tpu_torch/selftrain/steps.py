@@ -2,7 +2,8 @@
 
 The port of ``hiast_tpu/selftrain/steps.py``: ``normalize_image``,
 ``make_eval_forward``, the source-only and adversarial warmup steps, the
-plain self-training step and the HIAST consistency step.  The JAX package compiles one program per step; here a
+plain self-training step, the HIAST consistency step and the
+mutual-learning step.  The JAX package compiles one program per step; here a
 step is eager PyTorch: the trunk under bf16 autocast (float32 master
 weights, no loss scaling), BatchNorm in train mode (batch statistics,
 running statistics updated; frozen affine under ``model.is_freeze_bn``),
@@ -246,14 +247,19 @@ def make_consistency_step(segmentor, ema_module: nn.Module, optimizer: torch.opt
     the weak view in eval mode without gradients, under the same autocast;
     its target is the argmax for a 'CE' consistency loss and the softmax
     otherwise, at the loss resolution.  The student trains on the strong
-    view.  After the update, every ``ema_model.iter_update`` steps taken,
-    the EMA parameters move toward the student's (their values before the
-    step when the guard skipped it).  Returns the detached losses, the
-    student's and ``cst_loss``."""
+    view.  With ``cst_training.dcst_loss.weight`` > 0 and a
+    ``copy_paste_mask`` in the batch (on the crop's grid), the mask goes to
+    the loss grid as the pseudo-labels do and the directional-consistency
+    loss of the student's logits against the teacher's joins the
+    differentiated sum.  After the update, every ``ema_model.iter_update``
+    steps taken, the EMA parameters move toward the student's (their values
+    before the step when the guard skipped it).  Returns the detached
+    losses, the student's, ``cst_loss`` and ``dcst_loss``."""
     cst = segmentor.cfg.cst_training
     gamma = cst.ema_model.gamma
     iter_update = max(1, int(cst.ema_model.iter_update))
     hard_teacher = cst.cst_loss.type == "CE"
+    dcst = cst.dcst_loss.weight > 0
     guard = segmentor.cfg.runtime.skip_nonfinite_updates
     if strong_aug is not None and generator is None:
         raise ValueError(f"a {strong_aug!r} strong view needs a torch.Generator on the batch's device")
@@ -283,12 +289,94 @@ def make_consistency_step(segmentor, ema_module: nn.Module, optimizer: torch.opt
 
         out = _forward_for_loss(segmentor, strong, dtype)
         losses = segmentor.compute_loss(out["logits"], plbl, t_cst_lbl=cst_lbl)
+        if dcst and "copy_paste_mask" in batch:
+            cp_mask = _labels_for_loss(segmentor, batch["copy_paste_mask"].long(), t_logits)
+            losses.update(segmentor.compute_directional_consistency_loss(
+                out["logits"], t_logits, cp_mask, bidirectional=False))
         optimizer.zero_grad(set_to_none=True)
         _total_loss(losses).backward()
         _apply_update(optimizer, lr_fn, count, losses, params, buffers, snapshot)
         if count.iterations % iter_update == 0:
             with torch.no_grad():
                 ema_update(ema_params, student_params, gamma)
+        return {k: v.detach() for k, v in losses.items()}
+
+    return step
+
+
+def make_mutual_step(segmentor, peer_module: nn.Module, optimizer: torch.optim.Optimizer,
+                     peer_optimizer: torch.optim.Optimizer, lr_fn: Callable,
+                     dtype: torch.dtype = torch.bfloat16, strong_aug: str | None = None,
+                     generator: torch.Generator | None = None) -> Callable:
+    """One mutual-learning update (JAX ``make_mutual_step``; the reference's
+    latent ``mut_training``): two students, ``segmentor.module`` (A) and
+    ``peer_module`` (B), train on the same pseudo-labelled batch, each also
+    matching the other's target.
+
+    ``step(batch, count)`` takes ``t_img`` and ``t_plbl`` on the device.
+    First both targets, from the weak view in eval mode without gradients
+    (each student's BatchNorm buffers as they stood before the step): the
+    argmax for a 'CE' consistency loss, the softmax otherwise, at the loss
+    resolution.  With ``mut_training.is_strong_input`` and a ``strong_aug``
+    ('CCA' or 'SCA'), each student trains on its own strong view, drawn from
+    ``generator``, A's first; otherwise both train on the weak view.  Each
+    student's loss is ``compute_loss`` plus ``compute_mutual_loss`` against
+    the other's target; one backward runs on the sum, then both optimizers
+    step at the one lr ``lr_fn(count.updates)``.  Under
+    ``runtime.skip_nonfinite_updates`` one check covers both students'
+    losses and gradients, and a skipped step updates neither and restores
+    both students' buffers.  Returns the detached losses, B's under the
+    prefix ``peer_``."""
+    cfg = segmentor.cfg
+    strong_input = cfg.mut_training.is_strong_input and strong_aug is not None
+    hard_target = cfg.cst_training.cst_loss.type == "CE"  # the mutual loss is the consistency loss's type
+    guard = cfg.runtime.skip_nonfinite_updates
+    if strong_input and generator is None:
+        raise ValueError(f"a {strong_aug!r} strong view needs a torch.Generator on the batch's device")
+    peer = segmentor.with_module(peer_module)
+    students = (segmentor, peer)
+    params = _trainable(optimizer) + _trainable(peer_optimizer)
+    buffers = list(segmentor.module.buffers()) + list(peer_module.buffers())
+
+    def target(student, weak: torch.Tensor) -> torch.Tensor:
+        student.module.eval()
+        with torch.no_grad():
+            logits = _forward_for_loss(student, weak, dtype)["logits"]
+        return logits.argmax(1) if hard_target else torch.softmax(logits, dim=1)
+
+    def step(batch: dict, count: StepCount) -> dict:
+        snapshot = [b.clone() for b in buffers] if guard else None
+        weak_raw = batch["t_img"]
+        weak = normalize_image(weak_raw)
+        targets = [target(student, weak) for student in students]
+        if strong_input:
+            inputs = [normalize_image(apply_color_aug(
+                weak_raw, draw_color_aug(weak_raw.shape[0], strong_aug, generator), torch.bfloat16))
+                for _ in students]
+        else:
+            inputs = [weak, weak]
+        plbl = _labels_for_loss(segmentor, batch["t_plbl"].long(), targets[0])
+
+        losses, total = {}, 0.0
+        for prefix, student, img, peer_target in zip(("", "peer_"), students, inputs, targets[::-1]):
+            student.module.train()
+            logits = _forward_for_loss(student, img, dtype)["logits"]
+            own = student.compute_loss(logits, plbl)
+            own.update(student.compute_mutual_loss(logits, plbl, peer_target))
+            total = total + _total_loss(own)
+            losses.update({prefix + k: v for k, v in own.items()})
+        optimizer.zero_grad(set_to_none=True)
+        peer_optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        if snapshot is None or _all_finite(losses, params):
+            lr = lr_fn(count.updates)
+            for opt in (optimizer, peer_optimizer):
+                set_lr(opt, lr)
+                opt.step()
+            count.updates += 1
+        else:
+            torch._foreach_copy_(buffers, snapshot)
+        count.iterations += 1
         return {k: v.detach() for k, v in losses.items()}
 
     return step

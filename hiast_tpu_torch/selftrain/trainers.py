@@ -7,8 +7,9 @@ a labelled source, ``SourceOnlyTrainer`` alone and
 ``AdversarialWarmupTrainer`` against a domain discriminator on the target;
 ``SelfTrainingTrainer`` trains on the previous round's pseudo-labels;
 ``ConsistencySelfTrainingTrainer`` is the HIAST trainer (EMA teacher,
-strong view on the card, hard-aware copy-paste).  One device, one
-process; the mutual-learning trainer comes with its slice.  Gating the
+strong view on the card, hard-aware copy-paste, the directional-consistency
+loss); ``MutualLearningTrainer`` trains two students that teach each other.
+One device, one process.  Gating the
 side-effect writers on rank 0 comes with multi-GPU training (ROADMAP.md
 item A11).
 
@@ -440,9 +441,12 @@ class ConsistencySelfTrainingTrainer(SelfTrainingTrainer):
 
     def next_batch(self):
         b = next(self.t_stream)
+        out = {"t_img": b["images"], "t_plbl": b["labels"]}  # uint8; cast on the device
         if "copy_paste_mask" in b:
             self.paste_shares.append(np.count_nonzero(b["copy_paste_mask"] != 255) / b["copy_paste_mask"].size)
-        return {"t_img": b["images"], "t_plbl": b["labels"]}  # uint8; cast on the device
+            if self.cfg.cst_training.dcst_loss.weight > 0:  # on the crop's grid (the dataset replays the augs)
+                out["copy_paste_mask"] = b["copy_paste_mask"]
+        return out
 
     def make_step(self):
         _, strong = split_aug_types(list(self.cfg.dataset.target.aug_type))
@@ -483,3 +487,82 @@ class ConsistencySelfTrainingTrainer(SelfTrainingTrainer):
     def run(self):
         super().run()
         self.ema_recorder.report_end_info()
+
+
+@TRAINER.register("MutualLearningTrainer")
+class MutualLearningTrainer(SelfTrainingTrainer):
+    """Two students co-train on the pseudo-labels, each matching the other's
+    target (JAX ``trainers.py:517-580``; the reference's latent
+    ``mut_training``, code/utils/default_config.py:159-167).
+
+    The peer is a second module of the student's layout, initialised from
+    ``random_seed + 13``, then loaded from ``mut_training.resume_from``
+    where set, with its own optimizer.  The full-state ``model_last.pth``
+    carries its state_dict (``peer_state_dict``) and its optimizer
+    (``peer_optimizer``) beside the student's, and ``train.resume_from``
+    restores both.  Every validation validates the peer too
+    (``peer_model``).  Like the JAX trainer it writes no teacher
+    checkpoint, so the round driver runs it for one round."""
+
+    def assert_cfg(self):
+        super().assert_cfg()
+        mut = self.cfg.mut_training
+        if not mut.is_enabled or not mut.mut_loss.weight > 0:
+            raise ValueError("MutualLearningTrainer needs mut_training.is_enabled True and a "
+                             "mut_training.mut_loss.weight above 0")
+
+    def build_extra_state(self, full):
+        cfg = self.cfg
+        self.peer_module = build_segmentor(cfg).module
+        self.peer_module.init_weights(torch.Generator().manual_seed(cfg.train.random_seed + 13))
+        if cfg.mut_training.resume_from:
+            load_weights(cfg.mut_training.resume_from, self.peer_module)
+            self.logger.info(f"peer initialized from {cfg.mut_training.resume_from}")
+        self.peer_module.to(self.device)
+        self.peer_segmentor = self.segmentor.with_module(self.peer_module)
+        self.peer_optimizer = make_optimizer(cfg, self.peer_module)
+        if full is None:
+            return
+        if "peer_state_dict" not in full:
+            raise ValueError(
+                f"{cfg.train.resume_from}: a full train state without the peer; start from its "
+                "weights with train.init_from instead"
+            )
+        self.peer_module.load_state_dict(full["peer_state_dict"])
+        self.peer_optimizer.load_state_dict(full["peer_optimizer"])
+        self.logger.info(f"resumed the peer from {cfg.train.resume_from}")
+
+    def build_all_model(self):
+        super().build_all_model()
+        self.peer_recorder = ResultRecorder(self.cfg, "peer_model", self.logger, self.writer, self.lr_fn)
+
+    def make_step(self):
+        _, strong = split_aug_types(list(self.cfg.dataset.target.aug_type))
+        generator = torch.Generator(self.device).manual_seed(self.cfg.train.random_seed)
+        return S.make_mutual_step(
+            self.segmentor, self.peer_module, self.optimizer, self.peer_optimizer, self.lr_fn, self.dtype,
+            strong_aug=strong, generator=generator,
+        )
+
+    def build_val_data_reader(self):
+        super().build_val_data_reader()
+        self.peer_val_step = None
+        if self.val_step is not None:
+            self.peer_val_step = make_val_step(
+                self.peer_segmentor, self.cfg.dataset.val.resize_size, self.cfg.dataset.num_classes, self.dtype
+            )
+
+    def validate(self, iteration: int):
+        super().validate(iteration)  # the student, and the checkpoints
+        iou, miou = self._run_validation(self.peer_val_step, self.peer_module)
+        self.peer_recorder.record_and_report_metrics(miou, iou, iteration)
+
+    def checkpoint_state(self) -> dict:
+        state = super().checkpoint_state()
+        state["peer_state_dict"] = self.peer_module.state_dict()
+        state["peer_optimizer"] = self.peer_optimizer.state_dict()
+        return state
+
+    def run(self):
+        super().run()
+        self.peer_recorder.report_end_info()

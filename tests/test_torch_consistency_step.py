@@ -171,11 +171,14 @@ def test_float32_gradient_is_well_conditioned(monkeypatch):
 
 
 def _to_torch(batch):
-    return {
+    out = {
         "t_img": torch.from_numpy(batch["t_img"]),
         "t_img_strong": torch.from_numpy(batch["t_img_strong"]),
         "t_plbl": torch.from_numpy(batch["t_plbl"].astype(np.uint8)),
     }
+    if "copy_paste_mask" in batch:
+        out["copy_paste_mask"] = torch.from_numpy(batch["copy_paste_mask"].astype(np.uint8))
+    return out
 
 
 def _within(got: torch.Tensor, want, name: str, floor: float = 0.0, rel: float = 1e-3):
@@ -194,28 +197,50 @@ def test_one_step_matches_jax():
     check_one_step(_settings())
 
 
-def check_one_step(settings, init_key=INIT_KEY, by_cosine=("backbone.",)):
+def check_one_step(settings, init_key=INIT_KEY, by_cosine=("backbone.",), batch=None):
     """One consistency step of the port against JAX's from the same
     variables: the losses, every gradient, the BatchNorm statistics and
     the EMA (the module docstring's tolerances).  The gradients of the
-    parameters named with a prefix in ``by_cosine`` are held by cosine."""
-    batch = _batch()
+    parameters named with a prefix in ``by_cosine`` are held by cosine.
+    ``batch`` defaults to ``_batch()``; one with a ``copy_paste_mask``
+    adds ``dcst_loss`` to the losses."""
+    batch = _batch() if batch is None else batch
     init, [(state, want_losses)] = _jax_run(settings, [batch], init_key)
     segmentor, ema, _, step = _port(settings, init)
     count = StepCount()
     losses = step(_to_torch(batch), count)
     assert count == StepCount(iterations=1, updates=1)
-    assert sorted(losses) == ["cst_loss", "ent_ignored_loss", "kld_confident_loss", "target_seg_loss"]
+    names = ["cst_loss", "ent_ignored_loss", "kld_confident_loss", "target_seg_loss"]
+    assert sorted(losses) == sorted(names + ["dcst_loss"] * ("copy_paste_mask" in batch))
     _check_losses(losses, want_losses)
+
+    check_update(segmentor.module, init["params"], state.params, state.batch_stats, by_cosine)
+    params = dict(segmentor.module.named_parameters())
+    # the EMA (gamma 0.5) sits half-way between the initial and the updated
+    # parameters, in both packages (held against JAX's EMA in the two-step
+    # test, at an lr where the backbone's gradient differences stay small)
+    p0 = flax_to_port_state_dict(init)
+    jax_p1 = flax_to_port_state_dict({"params": state.params})
+    want_ema = flax_to_port_state_dict({"params": state.ema_params})
+    for name, p in ema.named_parameters():
+        torch.testing.assert_close(p, 0.5 * (params[name].detach() + p0[name]))
+        torch.testing.assert_close(want_ema[name], 0.5 * (jax_p1[name] + p0[name]))
+
+
+def check_update(module, init_params, new_params, new_batch_stats, by_cosine=("backbone.",)):
+    """``module``'s gradients and BatchNorm running statistics after one
+    step against a JAX SGD step at lr 1 from ``init_params`` to
+    ``new_params`` and ``new_batch_stats`` (the update is minus the
+    gradient, times 10 for the head), at the module docstring's
+    tolerances; the gradients of the parameters named with a prefix in
+    ``by_cosine`` are held by cosine."""
 
     def grad(path, p0, p1):
         return (p0 - p1) / (1.0 if path[0].key == "backbone" else 10.0)
 
-    jgrads = flax_to_port_state_dict({"params": jax.tree_util.tree_map_with_path(grad, init["params"], state.params)})
-    module = segmentor.module
-    params = dict(module.named_parameters())
+    jgrads = flax_to_port_state_dict({"params": jax.tree_util.tree_map_with_path(grad, init_params, new_params)})
     n_frozen = n_cosine = 0
-    for name, p in params.items():
+    for name, p in module.named_parameters():
         if not p.requires_grad:  # frozen BatchNorm affine: no update on either side
             assert p.grad is None and float(jgrads[name].abs().max()) == 0.0, name
             n_frozen += 1
@@ -227,22 +252,13 @@ def check_one_step(settings, init_key=INIT_KEY, by_cosine=("backbone.",)):
             _within(p.grad, jgrads[name].numpy(), f"grad {name}")
     assert n_frozen > 0 and n_cosine > 0
 
-    want_stats = flax_to_port_state_dict({"params": state.params, "batch_stats": state.batch_stats})
+    want_stats = flax_to_port_state_dict({"params": new_params, "batch_stats": new_batch_stats})
     n_stats = 0
     for name, buf in module.named_buffers():
         if name.endswith(("running_mean", "running_var")):
             _within(buf, want_stats[name].numpy(), f"buffer {name}")
             n_stats += 1
     assert n_stats > 0
-    # the EMA (gamma 0.5) sits half-way between the initial and the updated
-    # parameters, in both packages (held against JAX's EMA in the two-step
-    # test, at an lr where the backbone's gradient differences stay small)
-    p0 = flax_to_port_state_dict(init)
-    jax_p1 = flax_to_port_state_dict({"params": state.params})
-    want_ema = flax_to_port_state_dict({"params": state.ema_params})
-    for name, p in ema.named_parameters():
-        torch.testing.assert_close(p, 0.5 * (params[name].detach() + p0[name]))
-        torch.testing.assert_close(want_ema[name], 0.5 * (jax_p1[name] + p0[name]))
 
 
 def test_nonfinite_step_is_skipped():

@@ -8,8 +8,8 @@ entropy), float32, crop 48x96, batch 2.
 - resuming from it runs iterations 4 and 5 only, from the saved optimizer;
 - the generation CLI reads ``model_last.pth`` as its weights;
 - SIGTERM during a run checkpoints after the iteration and stops;
-- ``--device cuda`` without a card, ``runtime.remat`` and a
-  directional-consistency weight raise.
+- ``--device cuda`` without a card and ``runtime.remat`` raise (the
+  directional-consistency loss is held in tests/test_torch_dcst.py).
 
 And the HIAST round's trainer, ``ConsistencySelfTrainingTrainer``, on
 DeepLab-v2 with layers (1, 1, 1, 1): hiast_setting.yaml's overlay (EMA
@@ -147,9 +147,6 @@ def test_sigterm_checkpoints_and_stops(root, tmp_path):
 
 @pytest.mark.parametrize("extra,error", [
     (["runtime.remat", "True"], NotImplementedError),
-    # runtime.skip_nonfinite_updates is ported now (test_torch_consistency_step.py);
-    # the directional-consistency loss is the option still to port
-    (["cst_training.dcst_loss.weight", "0.5"], NotImplementedError),
 ])
 def test_unported_runtime_options_raise(root, tmp_path, extra, error):
     with pytest.raises(error):
