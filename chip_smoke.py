@@ -3,11 +3,23 @@
 
     python3 chip_smoke.py [--profile]
 
-1. Prints the card's name and power limit, then builds every CUDA kernel of
-   the port from hiast_tpu_torch/csrc/ with nvcc (sm_90a), one nvcc per
-   source, all started together, and prints the registers and spill bytes
-   of each attention and IAS kernel from the ptxas report (a spill fails
-   the run).
+1. Prints the card's name and power limit, the host CPU's model and core
+   count and the host C++ compiler with its version, then builds every
+   library of the port from hiast_tpu_torch/csrc/: each CUDA kernel source
+   with nvcc (sm_90a) and the host ops (``host_ops.cpp``, the PNG row
+   unfilter among them) with the host compiler, one compiler per source,
+   all started together, and prints the registers and spill bytes of each
+   attention and IAS kernel from the ptxas report (a spill fails the run).
+1b. Host-ops phase: each host op of ``csrc/host_ops.cpp`` (the ``NATIVE``
+   set of ``data/native_ops.py``, which every dataset, aug and
+   preprocessor of a run on the card uses) held bit for bit against its
+   plain numpy version at the data path's full sizes: the 'MS' crop
+   700x1400 of 1024x2048, flipped, to 512x1024; the 'PRS' resize 1024x2048
+   to 768x1536; the GTA5 'DACS' resize 1052x1914 to 720x1280 (images and
+   labels); the PNG unfilter of a 1024x2048 RGB image under filters 0-4;
+   a hard-class paste on 1024x2048.  Each is timed native and plain on the
+   host clock (median of 5) and printed on one JSON line ``{"host_ops":
+   [...], "host": ...}``.
 2. IAS kernel phase: holds ``ias_hist`` and ``ias_select`` against their
    plain PyTorch versions at the main path's shapes ([2, 19, 768, 1536]
    float32; the [2, 19, 96, 192] OS8 grid for the histogram too), with and
@@ -93,12 +105,16 @@
    more; checks that no kernel launched, the four losses are finite, every
    batch pasted pixels, ``model_last.pth`` holds the full state with the
    EMA at step 8 and ``ema_model_last.pth`` exists, and that the training
-   data unfiltered natively; prints s/iter, images/s, peak memory, MFU
+   and validation datasets, their augs and the donors' dataset use the
+   native host ops (``check_native``); prints s/iter, images/s, peak memory, MFU
    (the student's forward and backward and the teacher's forward, counted
    as in 7, over 989 TFLOP/s), the CCA chain's and the EMA update's device
    ms, the device's idle share over 3 profiled steps (the profiler's table
-   only with ``--profile``), and the host ms of a sample with its donor;
-   then generates the next
+   only with ``--profile``), and the host ms of a sample with its donor
+   (median of 3), with the native host ops and, on the same samples, the
+   plain ones (``with_host``), and ``supply_and_step``: the s a batch the
+   stream supplies while the main thread only waits, and the s a step
+   takes with no fetch; then generates the next
    round's pseudo-labels from ``ema_model_last.pth`` over the 12 images
    (launches: ias_hist 6, ias_select 6), and checks that PIL was never
    imported.
@@ -112,8 +128,9 @@
    the 512x1024 crop and ``labels == mask`` wherever the mask is not 255;
    ``fda_device`` on the card at [6, 512, 1024, 3] against its CPU result
    (tolerance ``FDA_TOL``, the largest difference printed) and its device
-   ms; prints s/iter and the host ms of a sample with and without the
-   replay.
+   ms; checks that the datasets use the native host ops; prints s/iter
+   and the host ms of a sample with and without the replay, with the
+   native host ops and with the plain ones on the same samples.
 9. The main path end to end, the round driver: seeded random full-width
    DeepLab-v2/R101 weights as one ``.pth`` (warmup student and teacher); a
    configs dir whose ``sl_1.yaml`` and ``sl_2.yaml`` are the port's shipped
@@ -185,13 +202,17 @@
       ``.pth``: ``AdversarialWarmupTrainer``, batch 6 source + 6 target of
       512x1024 'MS' crops, ``FCDiscriminator`` on the softmax, MSE.
       Checks each iteration's three losses finite, that every
-      discriminator tensor moved from its seeded initialisation, and that
+      discriminator tensor moved from its seeded initialisation, that
       ``model_last.pth`` holds the discriminator's state, its Adam state
-      and its schedule count at step 8; prints s/iter (iterations 3-8, and
-      steady), peak memory, the idle share of 3 profiled steps, and MFU
-      (FlopCounterMode over the step's two trunk forwards and their
-      backward and the discriminator's three forwards and two backward
-      paths, over 989 TFLOP/s).
+      and its schedule count at step 8, and that both datasets use the
+      native host ops; prints s/iter (iterations 3-8, and steady), peak
+      memory, the idle share of 3 profiled steps, MFU (FlopCounterMode
+      over the step's two trunk forwards and their backward and the
+      discriminator's three forwards and two backward paths, over 989
+      TFLOP/s), the host ms of a GTA5 sample, native and plain, and
+      ``supply_and_step`` (both streams) as in 8.  Then
+      one line sums up the host input: ms a sample (native, plain) of
+      phases 8, 8b and 13a, their s/iter and phase 9's generation rates.
    b. SYNTHIA source-only: 6 frames of 760x1280 with 16-bit RGB labels,
       ``SourceOnlyTrainer`` for 4 iterations (batch 6, 'MS').
    c. The handoff: ``cli.run_rounds --rounds 1`` from the warmup's
@@ -1265,6 +1286,7 @@ def consistency_phase(torch, work: str, profile: bool) -> dict:
     launch counts and the training's rates."""
     from hiast_tpu_torch.cli import train as cli_train
     from hiast_tpu_torch.data import png
+    from hiast_tpu_torch.data.native_ops import NATIVE, PLAIN
     from hiast_tpu_torch.ops.color_aug import apply_color_aug, draw_color_aug
     from hiast_tpu_torch.selftrain.train_state import ema_update
     from hiast_tpu_torch.utils.checkpoint import load_train_state
@@ -1278,7 +1300,7 @@ def consistency_phase(torch, work: str, profile: bool) -> dict:
     with open(os.path.join(image_dir, "images", "hiast_0.png"), "rb") as f:
         blob = f.read()
     t0 = time.perf_counter()
-    native = png.decode_png(blob, png.unfilter_native)
+    native = png.decode_png(blob, NATIVE.unfilter)
     native_ms = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
     plain = png.decode_png(blob, png.unfilter_plain)
@@ -1301,7 +1323,8 @@ def consistency_phase(torch, work: str, profile: bool) -> dict:
     counts = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(all(v == 0 for v in counts.values()), f"consistency training launched kernels: {counts}")
-    check(trainer.t_dataset.unfilter is png.unfilter_native, "the training data unfilter PNG rows natively")
+    check_native(trainer.t_dataset, "consistency training")
+    check_native(trainer.v_dataset, "consistency training's validation")
     losses = trainer.loss_log
     check(len(losses) == TRAIN_ITERS and all(np.isfinite(v) for step in losses for v in step.values())
           and sorted(losses[0]) == ["cst_loss", "ent_ignored_loss", "kld_confident_loss", "target_seg_loss"],
@@ -1348,10 +1371,13 @@ def consistency_phase(torch, work: str, profile: bool) -> dict:
           f"{ema_ms:.4f} ms over {n_params} parameters (bytes bound "
           f"{3 * 4 * n_params / HBM_BYTES_PER_S * 1e3:.4f} ms); device idle share of 3 profiled steps at "
           f"least {idle:.3f}; pasted share {np.mean(shares):.4f}; launches {counts}; on {card_line()}")
-    t0 = time.perf_counter()
-    trainer.t_dataset.get_item(0, np.random.default_rng(0))
-    print(f"host: one consistency sample (decode of the all-filters image and its pseudo-label, a copy-paste "
-          f"donor's decode and paste, MS) {1e3 * (time.perf_counter() - t0):.2f} ms")
+    host_ms = host_sample_ms(trainer.t_dataset)
+    plain_host_ms = host_sample_ms(with_host(trainer.t_dataset, PLAIN))
+    supply_s, step_s = supply_and_step(torch, trainer)
+    print(f"host: one consistency sample (decode of a 1024x2048 image, the first with rows under every filter, "
+          f"and its pseudo-label, a copy-paste donor's decode and paste, MS; median of 3) {host_ms:.2f} ms native, "
+          f"{plain_host_ms:.2f} ms plain; the stream alone supplies a batch in {supply_s:.4f} s, a step alone "
+          f"takes {step_s:.4f} s")
     del trainer, imgs, ema_copy, ema_params, params
     torch.cuda.empty_cache()
 
@@ -1360,7 +1386,8 @@ def consistency_phase(torch, work: str, profile: bool) -> dict:
                                 json_path, image_dir, N_TRAIN_IMAGES, R101_ARGV)
     check("PIL" not in sys.modules, "PIL was imported")
     return {"counts": gen_counts, "s_per_iter": s_per_iter, "peak_gb": peak_gb, "mfu": mfu,
-            "cca_ms": cca_ms, "ema_ms": ema_ms, "idle": idle}
+            "cca_ms": cca_ms, "ema_ms": ema_ms, "idle": idle, "host_ms": (host_ms, plain_host_ms),
+            "supply_step_s": (supply_s, step_s)}
 
 
 DCST_ITERS = 4  # iterations of the dcst run (phase 8b)
@@ -1406,6 +1433,7 @@ def dcst_phase(torch, work: str) -> dict:
 
     from hiast_tpu_torch.cli import train as cli_train
     from hiast_tpu_torch.data.datasets import build_dataset
+    from hiast_tpu_torch.data.native_ops import PLAIN
     from hiast_tpu_torch.ops.fda import fda_device
     from hiast_tpu_torch.registry import PREPROCESSOR
 
@@ -1432,16 +1460,20 @@ def dcst_phase(torch, work: str) -> dict:
               + f", pasted share {trainer.paste_shares[i - 1]:.4f}")
 
     dataset = trainer.t_dataset
+    check_native(dataset, "dcst training")
     replay_checks(dataset, 3, "CopyPaste + MS, dcst on")
-    plain = copy.copy(dataset)  # the same dataset without the replay
-    plain.cfg = trainer.cfg.clone()
-    plain.cfg.cst_training.dcst_loss.weight = 0.0
-    with_ms, without_ms = host_sample_ms(dataset), host_sample_ms(plain)
+    no_replay = copy.copy(dataset)  # the same dataset without the replay
+    no_replay.cfg = trainer.cfg.clone()
+    no_replay.cfg.cst_training.dcst_loss.weight = 0.0
+    with_ms, without_ms = host_sample_ms(dataset), host_sample_ms(no_replay)
+    plain_with_ms = host_sample_ms(with_host(dataset, PLAIN))
+    plain_without_ms = host_sample_ms(with_host(no_replay, PLAIN))
     for kind in ("ClassMix", "CutMix"):
-        ds = build_dataset(trainer.cfg, "target", pseudo_dir=pseudo_dir, unfilter=trainer.unfilter)
+        ds = build_dataset(trainer.cfg, "target", pseudo_dir=pseudo_dir, host=trainer.host)
         ds.set_preprocessor(PREPROCESSOR[kind](trainer.cfg, ds))
+        check_native(ds, kind)
         replay_checks(ds, 3, f"{kind} + MS, dcst on")
-    del trainer, dataset, plain
+    del trainer, dataset, no_replay
     torch.cuda.empty_cache()
 
     rng = np.random.default_rng(19)
@@ -1459,7 +1491,10 @@ def dcst_phase(torch, work: str) -> dict:
           f"MS) with the mask replay {with_ms:.2f}, without {without_ms:.2f}; fda_device [{TRAIN_B}, {TRAIN_H}, "
           f"{TRAIN_W}, 3] max |card - CPU| {fda_err:.3g} (tolerance {FDA_TOL}), {fda_ms:.4f} ms on the card; "
           f"on {card_line()}")
-    return {"s_per_iter": s_per_iter, "host_ms": (with_ms, without_ms), "fda_ms": fda_ms, "fda_err": fda_err}
+    print(f"host ms a sample (median of 3), plain host ops: with the mask replay {plain_with_ms:.2f}, without "
+          f"{plain_without_ms:.2f}")
+    return {"s_per_iter": s_per_iter, "host_ms": (with_ms, without_ms), "plain_host_ms": (plain_with_ms,
+            plain_without_ms), "fda_ms": fda_ms, "fda_err": fda_err}
 
 
 ROUND_ITERS = 4  # a round's iterations in the round-driver phase (8,000 in sl_k.yaml)
@@ -2160,6 +2195,7 @@ def warmup_phase(torch, work: str, pth: str, profile: bool) -> dict:
     R101 from the seeded ``pth`` (``train.init_from``), batch 6 of 512x1024
     'MS' crops; returns its ``model_last.pth`` and rates."""
     from hiast_tpu_torch.cli import train as cli_train
+    from hiast_tpu_torch.data.native_ops import PLAIN
     from hiast_tpu_torch.models.deeplab_v2 import FCDiscriminator
     from hiast_tpu_torch.utils.checkpoint import load_train_state
 
@@ -2183,6 +2219,8 @@ def warmup_phase(torch, work: str, pth: str, profile: bool) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(type(trainer).__name__ == "AdversarialWarmupTrainer", f"warmup trainer {type(trainer).__name__}")
     check(all(v == 0 for v in counts.values()), f"the warmup launched kernels: {counts}")
+    check_native(trainer.s_dataset, "the warmup's source")
+    check_native(trainer.t_dataset, "the warmup's target")
     losses = trainer.loss_log
     check(len(losses) == WARMUP_ITERS and all(np.isfinite(v) for step in losses for v in step.values())
           and sorted(losses[0]) == ["D_loss", "adv_loss", "source_seg_loss"], f"warmup losses {losses}")
@@ -2209,19 +2247,21 @@ def warmup_phase(torch, work: str, pth: str, profile: bool) -> dict:
     idle = profile_run(torch, "adversarial warmup, 3 steps", lambda: steps(3), table=profile)
     flops = adversarial_step_flops(torch, trainer)
     mfu = flops / s_per_iter / BF16_FLOPS_PER_S
-    t0 = time.perf_counter()
-    trainer.s_dataset.get_item(0, np.random.default_rng(0))
-    host_ms = 1e3 * (time.perf_counter() - t0)
+    host_ms = host_sample_ms(trainer.s_dataset)
+    plain_host_ms = host_sample_ms(with_host(trainer.s_dataset, PLAIN))
+    supply_s, step_s = supply_and_step(torch, trainer)
     print(f"adversarial warmup [{WARMUP_ITERS} iterations, batch {TRAIN_B}, {TRAIN_H}x{TRAIN_W}, R101 + "
           f"FCDiscriminator]: main {wall:.3f} s, iterations 3-{WARMUP_ITERS} {run_s_per_iter:.4f} s/iter; steady "
           f"(8 steps after 4 more) {s_per_iter:.4f} s/iter ({TRAIN_B / s_per_iter:.3f} source + target "
           f"images/s), peak memory {peak_gb:.3f} GB, {flops / 1e12:.3f} TFLOP per step, MFU {mfu:.4f} of "
           f"989 TFLOP/s; device idle share of 3 profiled steps at least {idle:.3f}; discriminator moved "
-          f"{moved:.4g} at least; host: one GTA5 sample (decode, label, MS) {host_ms:.2f} ms; on {card_line()}")
+          f"{moved:.4g} at least; host: one GTA5 sample (decode, label, MS; median of 3) {host_ms:.2f} ms native, "
+          f"{plain_host_ms:.2f} ms plain; the streams alone supply a source + target batch in {supply_s:.4f} s, a "
+          f"step alone takes {step_s:.4f} s; on {card_line()}")
     del trainer, disc
     torch.cuda.empty_cache()
     return {"ckpt": ckpt, "s_per_iter": s_per_iter, "peak_gb": peak_gb, "mfu": mfu, "idle": idle,
-            "flops": flops}
+            "flops": flops, "host_ms": (host_ms, plain_host_ms), "supply_step_s": (supply_s, step_s)}
 
 
 def source_only_phase(torch, work: str, pth: str) -> float:
@@ -2534,13 +2574,144 @@ def print_flops(total: float, what: str) -> None:
           f"{total / BF16_FLOPS_PER_S * 1e3:.3f} ms per batch)")
 
 
+def host_cpu() -> str:
+    """The host CPU's model (``/proc/cpuinfo``, else ``lscpu``), its
+    architecture and the cores this process may use."""
+    import platform
+
+    model = None
+    try:
+        with open("/proc/cpuinfo") as f:
+            model = next((line.split(":", 1)[1].strip() for line in f if line.startswith("model name")), None)
+    except OSError:
+        pass
+    if model is None and shutil.which("lscpu"):
+        out = subprocess.run(["lscpu"], capture_output=True, text=True).stdout
+        model = next((line.split(":", 1)[1].strip() for line in out.splitlines() if line.startswith("Model name")),
+                     None)
+    return f"{model or 'model not reported'} ({platform.machine()}), {len(os.sched_getaffinity(0))} cores"
+
+
+def supply_and_step(torch, trainer) -> tuple[float, float]:
+    """The two rates a steady training step overlaps: s a batch that the
+    trainer's streams assemble while the main thread only waits (their
+    stock drained first), and s a step on one batch with no fetch."""
+    from hiast_tpu_torch.selftrain.steps import StepCount
+
+    for _ in range(3):  # the batches stocked ahead and the one in assembly
+        trainer.next_batch()
+    t0 = time.perf_counter()
+    for _ in range(4):
+        trainer.next_batch()
+    supply = (time.perf_counter() - t0) / 4
+    batch = trainer._upload(trainer.next_batch())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(4):
+        trainer.step_fn(batch, StepCount(t, t))
+    torch.cuda.synchronize()
+    return supply, (time.perf_counter() - t0) / 4
+
+
+def host_median_ms(fn, reps: int = 5) -> float:
+    """Median host-clock ms of ``fn()`` over ``reps`` calls."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def host_ops_phase() -> list:
+    """Phase 1b: each of the port's host ops (csrc/host_ops.cpp, the NATIVE
+    set) against its plain numpy version (PLAIN) at the data path's full
+    sizes, bit for bit, and both timed on the host clock (median of 5)."""
+    from hiast_tpu_torch.data import augment as A
+    from hiast_tpu_torch.data.native_ops import NATIVE, PLAIN
+
+    rng = np.random.default_rng(23)
+    img = rng.integers(0, 256, (VAL_H, VAL_W, 3), dtype=np.uint8)
+    lbl = rng.integers(0, C, (VAL_H, VAL_W), dtype=np.uint8)
+    gta_img = rng.integers(0, 256, (GTA_H, GTA_W, 3), dtype=np.uint8)
+    gta_lbl = rng.integers(0, C, (GTA_H, GTA_W), dtype=np.uint8)
+    donor_img = rng.integers(0, 256, (VAL_H, VAL_W, 3), dtype=np.uint8)
+    donor_lbl = rng.integers(0, C, (VAL_H, VAL_W), dtype=np.uint8)
+    hard = np.zeros(256, bool)
+    hard[rng.choice(C, size=9, replace=False)] = True
+    raw = filter_rows(img)
+
+    def paste(host):
+        outs = (img.copy(), lbl.copy(), np.full_like(lbl, 255))
+        t0 = time.perf_counter()
+        host.paste_hard_classes(*outs, donor_img, donor_lbl, hard)
+        return outs, (time.perf_counter() - t0) * 1e3
+
+    cases = {  # name -> (what, host -> outputs)
+        "ms_crop": ("'MS' crop 700x1400 of 1024x2048 at (100, 300), flipped, to 512x1024, image + label",
+                    lambda host: host.crop_flip_resize(img, lbl, 100, 300, 700, 1400, True, TRAIN_H, TRAIN_W)),
+        "prs_resize": ("'PRS' resize 1024x2048 to 768x1536, image + label",
+                       lambda host: A.Resize(H, W, host=host)(img, lbl)),
+        "dacs_resize": (f"GTA5 'DACS' resize {GTA_H}x{GTA_W} to 720x1280, image + label",
+                        lambda host: A.Resize(720, 1280, host=host)(gta_img, gta_lbl)),
+        "unfilter": ("PNG unfilter of a 1024x2048 RGB image, rows under filters 0-4",
+                     lambda host: (host.unfilter(raw, 3),)),
+    }
+    rows = []
+    for name, (what, run) in cases.items():
+        got, want = run(NATIVE), run(PLAIN)
+        check(all(g.dtype == w.dtype and np.array_equal(g, w) for g, w in zip(got, want)),
+              f"host op {name}: native differs from plain")
+        rows.append({"op": name, "what": what, "equal": True, "native_ms": host_median_ms(lambda: run(NATIVE)),
+                     "plain_ms": host_median_ms(lambda: run(PLAIN))})
+    (got, _), (want, _) = paste(NATIVE), paste(PLAIN)
+    check(all(np.array_equal(g, w) for g, w in zip(got, want)), "host op paste: native differs from plain")
+    rows.append({"op": "paste", "what": "hard-class paste on 1024x2048, random labels, 9 of 19 classes hard",
+                 "equal": True, "native_ms": statistics.median(paste(NATIVE)[1] for _ in range(5)),
+                 "plain_ms": statistics.median(paste(PLAIN)[1] for _ in range(5))})
+    for r in rows:
+        print(f"host op {r['op']} ({r['what']}): native equal to plain; {r['native_ms']:.3f} ms native, "
+              f"{r['plain_ms']:.3f} ms plain (host clock, median of 5)")
+    return rows
+
+
+def with_host(dataset, host):
+    """A shallow copy of ``dataset`` whose augs and preprocessor do their
+    pixel work on ``host`` (to time the plain set beside the native one on
+    the same samples)."""
+    import copy
+
+    ds = copy.copy(dataset)
+    ds.host = host
+    ds.aug_fns = []
+    for fn in dataset.aug_fns:
+        fn = copy.copy(fn)
+        fn.host = host
+        ds.aug_fns.append(fn)
+    if dataset.preprocessor is not None:
+        ds.preprocessor = copy.copy(dataset.preprocessor)
+        ds.preprocessor.dataset = ds
+    return ds
+
+
+def check_native(dataset, tag: str) -> None:
+    """``dataset``, its augs and its preprocessor's donors use the port's
+    host C++ (the NATIVE set), as every dataset of a run on the card."""
+    from hiast_tpu_torch.data.native_ops import NATIVE
+
+    check(dataset.host is NATIVE and all(fn.host is NATIVE for fn in dataset.aug_fns)
+          and (dataset.preprocessor is None or dataset.preprocessor.dataset.host is NATIVE),
+          f"{tag}: a dataset, aug or preprocessor of the run on the card does not use the native host ops")
+
+
 def host_costs(image_path: str) -> None:
     """Host clock: decode one input PNG, encode one label PNG."""
     from hiast_tpu_torch.data.datasets import read_rgb
-    from hiast_tpu_torch.data.png import encode_png, unfilter_native
+    from hiast_tpu_torch.data.native_ops import NATIVE
+    from hiast_tpu_torch.data.png import encode_png
 
     t0 = time.perf_counter()
-    img = read_rgb(image_path, unfilter_native)  # as the CLIs read on the card
+    img = read_rgb(image_path, NATIVE.unfilter)  # as the CLIs read on the card
     decode = time.perf_counter() - t0
     lbl = np.zeros(img.shape[:2], np.uint8)
     lbl[:, img.shape[1] // 2:] = 7
@@ -2566,9 +2737,10 @@ def main(argv: list[str]) -> int:
 
     from hiast_tpu_torch.ops.cuda import build
 
+    print(f"host: {host_cpu()}; host C++ compiler {build.find_cxx()}: {build.cxx_version()}")
     t0 = time.perf_counter()
     libs = build.build(build.source_names())
-    print(f"built {len(libs)} kernel libraries in {time.perf_counter() - t0:.2f} s")
+    print(f"built {len(libs)} libraries ({', '.join(build.source_names())}) in {time.perf_counter() - t0:.2f} s")
     reported = set()
     for lib in libs:
         with open(lib + ".log") as f:
@@ -2581,6 +2753,8 @@ def main(argv: list[str]) -> int:
             reported.add(kernel.split("<")[0])
     check({"ias_hist_kernel", "ias_hist_reduce", "ias_select_kernel", "ias_select_reduce"} <= reported,
           f"the ptxas report lacks IAS kernels: {sorted(reported)}")
+
+    print(json.dumps({"host_ops": host_ops_phase(), "host": host_cpu()}))
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2650,6 +2824,15 @@ def main(argv: list[str]) -> int:
           f"(batch {TRAIN_B} source + {TRAIN_B} target, {TRAIN_H}x{TRAIN_W}, DeepLab-v2/R101, on {card})")
     synthia_s = source_only_phase(torch, work, pth)
     print(f"source-only warmup (SYNTHIA): {synthia_s:.4f} s/iter (batch {TRAIN_B}, {TRAIN_H}x{TRAIN_W}, on {card})")
+    gen_rates = ", ".join(f"{N_TRAIN_IMAGES / rec['gen_loop_s']:.3f}" for rec in rounds["records"])
+    print(f"host input with the native host ops (plain beside it, the same samples; ms a sample, median of 3): "
+          f"consistency {hiast['host_ms'][0]:.2f} ({hiast['host_ms'][1]:.2f}), with the dcst replay "
+          f"{dcst['host_ms'][0]:.2f} ({dcst['plain_host_ms'][0]:.2f}), GTA5 warmup {warm['host_ms'][0]:.2f} "
+          f"({warm['host_ms'][1]:.2f}); s/iter: consistency {hiast['s_per_iter']:.4f} (batch supply alone "
+          f"{hiast['supply_step_s'][0]:.4f}, step alone {hiast['supply_step_s'][1]:.4f}), dcst iterations 3-"
+          f"{DCST_ITERS} {dcst['s_per_iter']:.4f}, warmup {warm['s_per_iter']:.4f} (supply "
+          f"{warm['supply_step_s'][0]:.4f}, step {warm['supply_step_s'][1]:.4f}); generation over "
+          f"{VAL_H}x{VAL_W} sources (round driver) {gen_rates} images/s; host {host_cpu()}; on {card}")
     handoff = handoff_phase(torch, work, warm["ckpt"], os.path.join(work, "configs"))
     oxford = oxford_phase(torch, work)
     print(f"oxford round warm: generation {oxford['gen_rate']:.3f} images/s (batch {B}, {OX_H}x{OX_W}, 9 classes), "

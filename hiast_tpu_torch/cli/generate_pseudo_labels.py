@@ -21,7 +21,7 @@ import torch
 
 from hiast_tpu_torch.cli.common import build_cfg, resolve_device, standard_parser
 from hiast_tpu_torch.data.datasets import build_dataset
-from hiast_tpu_torch.data.png import unfilter_for
+from hiast_tpu_torch.data.native_ops import host_ops_for
 from hiast_tpu_torch.data.pipeline import BatchIterator, prefetched
 from hiast_tpu_torch.models.segmentors import build_segmentor
 from hiast_tpu_torch.ops.resize import bilinear_resize
@@ -101,7 +101,7 @@ def main(argv=None):
     segmentor.module.to(device).eval()
 
     h, w = cfg.pseudo_policy.resize_size
-    dataset = build_dataset(cfg, "target", aug_type=[f"PRS-{h}-{w}"], unfilter=unfilter_for(device.type))
+    dataset = build_dataset(cfg, "target", aug_type=[f"PRS-{h}-{w}"], host=host_ops_for(device.type))
 
     def data_iter_factory():
         # shuffle=True matches the reference IAS pass (online thresholds see

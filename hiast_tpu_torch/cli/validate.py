@@ -17,7 +17,7 @@ import torch
 
 from hiast_tpu_torch.cli.common import build_cfg, resolve_device, standard_parser
 from hiast_tpu_torch.data.datasets import build_dataset
-from hiast_tpu_torch.data.png import unfilter_for
+from hiast_tpu_torch.data.native_ops import host_ops_for
 from hiast_tpu_torch.data.pipeline import BatchIterator, prefetched
 from hiast_tpu_torch.evaluation import Validator
 from hiast_tpu_torch.models.segmentors import build_segmentor
@@ -39,7 +39,7 @@ def main(argv=None):
     load_weights(cfg.validate.resume_from, segmentor.module)
     segmentor.module.to(device).eval()
 
-    dataset = build_dataset(cfg, "val", aug_type=[], unfilter=unfilter_for(device.type))
+    dataset = build_dataset(cfg, "val", aug_type=[], host=host_ops_for(device.type))
     # a daemon thread decodes the next batches while the card runs this one
     data_iter = prefetched(
         iter(BatchIterator(dataset, cfg.validate.batch_size, shuffle=False, drop_last=False)),

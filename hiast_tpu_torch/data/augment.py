@@ -1,4 +1,4 @@
-"""Host-side geometric augmentation (numpy only).
+"""Host-side geometric augmentation.
 
 The part of ``hiast_tpu/data/augment.py`` that generation and plain
 self-training use: the deterministic 'PRS-h-w' resize, the 'MS' / 'OMS'
@@ -7,9 +7,14 @@ parsing.  The resize follows cv2's conventions without needing cv2:
 INTER_LINEAR with half-pixel centres (edges clamped) for images, rounded to
 uint8, and INTER_NEAREST (``floor(dst * src / dst_size)``) for labels.  cv2
 rounds its bilinear weights to 11-bit fixed point, so images may differ from
-cv2's by one intensity level; labels match it exactly.  ``GeometricAug``
+cv2's by one intensity level; labels match it exactly.  ``crop_flip_resize``
 repeats the arithmetic of the JAX package's fused C++ crop+flip+resize
-(``native/hiast_host_ops.cc:crop_flip_resize_u8``) in numpy.
+(``hiast_tpu/data/native_ops.py:crop_flip_resize``) in numpy.
+
+The numpy functions here (``resize_linear``, ``resize_nearest``,
+``crop_flip_resize``) are the plain versions and the specification of the
+port's C++ ones (``data/native_ops.py``); each aug calls the set of its
+``host`` (a ``native_ops.HostOps``), the native one beside a card.
 
 The source-domain augs: 'DACS' (``ResizeCrop``: resize, then a random
 crop) and 'FDA-*' (``FDA``: the low-frequency amplitude band of a random
@@ -20,10 +25,13 @@ from __future__ import annotations
 
 import json
 import os
-from dataclasses import dataclass
-from typing import Callable
+from dataclasses import dataclass, field
+from typing import TYPE_CHECKING, Callable
 
 import numpy as np
+
+if TYPE_CHECKING:
+    from hiast_tpu_torch.data.native_ops import HostOps
 
 
 def _linear_taps(n_in: int, n_out: int):
@@ -100,6 +108,7 @@ class GeometricAug:
     min_max_height: tuple[int, int]
     w2h_ratio: float
     flip_p: float = 0.5
+    host: HostOps = field(kw_only=True)
 
     def __call__(self, img: np.ndarray, lbl: np.ndarray, rng: np.random.Generator):
         flip = bool(rng.random() < self.flip_p)
@@ -109,19 +118,20 @@ class GeometricAug:
         crop_w = min(int(round(crop_h * self.w2h_ratio)), w)
         y0 = int(rng.integers(0, h - crop_h + 1))
         x0 = int(rng.integers(0, w - crop_w + 1))
-        return crop_flip_resize(img, lbl, y0, x0, crop_h, crop_w, flip, self.out_h, self.out_w)
+        return self.host.crop_flip_resize(img, lbl, y0, x0, crop_h, crop_w, flip, self.out_h, self.out_w)
 
 
 @dataclass
 class Resize:
     out_h: int
     out_w: int
+    host: HostOps = field(kw_only=True)
 
     def __call__(self, img, lbl, rng=None):
         if img.shape[:2] != (self.out_h, self.out_w):
-            img = resize_linear(img, self.out_h, self.out_w)
+            img = self.host.resize_linear(img, self.out_h, self.out_w)
         if lbl is not None and lbl.shape[:2] != (self.out_h, self.out_w):
-            lbl = resize_nearest(lbl, self.out_h, self.out_w)
+            lbl = self.host.resize_nearest(lbl, self.out_h, self.out_w)
         return img, lbl
 
 
@@ -134,9 +144,10 @@ class ResizeCrop:
     w: int
     crop_h: int
     crop_w: int
+    host: HostOps = field(kw_only=True)
 
     def __call__(self, img, lbl, rng: np.random.Generator):
-        img, lbl = Resize(self.h, self.w)(img, lbl)
+        img, lbl = Resize(self.h, self.w, host=self.host)(img, lbl)
         y0 = int(rng.integers(0, self.h - self.crop_h + 1))
         x0 = int(rng.integers(0, self.w - self.crop_w + 1))
         return (
@@ -150,20 +161,22 @@ class FDA:
     the centred low-frequency amplitude band of each channel, 2b x 2b with
     b = max(floor(min(h, w) * beta), 1), is taken from a random image of the
     other domain's manifest (drawn first from ``rng``), read with
-    ``read_rgb`` and resized to the sample; the phase stays the sample's.
-    The result is clipped to [0, 255] and truncated to uint8, as in JAX."""
+    ``read_rgb`` and resized to the sample with ``host``'s bilinear resize;
+    the phase stays the sample's.  The result is clipped to [0, 255] and
+    truncated to uint8, as in JAX."""
 
     def __init__(self, json_path: str, image_dir: str, read_rgb: Callable[[str], np.ndarray],
-                 beta_limit: float = 0.001):
+                 beta_limit: float = 0.001, *, host: HostOps):
         with open(json_path) as f:
             data = json.load(f)
         self.paths = [os.path.join(image_dir, d["image_name"]) for d in data]
         self.read_rgb = read_rgb
         self.beta = beta_limit
+        self.host = host
 
     def _load_target(self, rng: np.random.Generator, shape) -> np.ndarray:
         img = self.read_rgb(self.paths[int(rng.integers(0, len(self.paths)))])
-        return Resize(shape[0], shape[1])(img, None)[0]
+        return Resize(shape[0], shape[1], host=self.host)(img, None)[0]
 
     def __call__(self, img, lbl, rng: np.random.Generator):
         tgt = self._load_target(rng, img.shape[:2]).astype(np.float32)

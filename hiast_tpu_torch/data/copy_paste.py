@@ -27,15 +27,18 @@ uses them.  Each preprocessor returns (image, label, ``copy_paste_mask``),
 the mask holding the pasted donor labels and 255 elsewhere.
 
 Every draw comes from the sample's ``np.random.Generator`` in the JAX
-package's order, so one seed gives the same donors, bit for bit.  A donor
-of another size is resized to the sample's with the port's own
-``resize_linear`` / ``resize_nearest`` (the JAX package uses cv2).
+package's order, so one seed gives the same donors, bit for bit.  The
+pixel work goes through the donor dataset's ``host`` ops
+(``data/native_ops.py``, the port's C++ beside a card): a donor of another
+size is resized to the sample's with its ``resize_linear`` /
+``resize_nearest`` (the JAX package uses cv2), and CopyPaste and ClassMix
+paste with its ``paste_hard_classes`` (``paste_hard_classes`` below is the
+plain version).  CutMix's box is a slice copy.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from hiast_tpu_torch.data.augment import resize_linear, resize_nearest
 from hiast_tpu_torch.registry import PREPROCESSOR
 
 IGNORE = 255
@@ -47,15 +50,16 @@ def _fitted(dataset, index: int, shape):
     (the sample's) where they differ."""
     d_img, d_lbl, _ = dataset.load_data(index)
     if d_img.shape != shape:
-        d_img = resize_linear(d_img, shape[0], shape[1])
-        d_lbl = resize_nearest(d_lbl, shape[0], shape[1])
+        d_img = dataset.host.resize_linear(d_img, shape[0], shape[1])
+        d_lbl = dataset.host.resize_nearest(d_lbl, shape[0], shape[1])
     return d_img, d_lbl
 
 
 def paste_hard_classes(img, lbl, cp_mask, donor_img, donor_lbl, hard_lut) -> None:
     """Paste in place the donor's pixels whose label is hard
     (``hard_lut[label]``, a bool [256] table) into ``img``, ``lbl`` and
-    ``cp_mask`` (``hiast_tpu/data/native_ops.py:paste_hard_classes``)."""
+    ``cp_mask`` (``hiast_tpu/data/native_ops.py:paste_hard_classes``): the
+    plain version of ``data/native_ops.py:paste_hard_classes_native``."""
     mask = hard_lut[donor_lbl]
     img[mask] = donor_img[mask]
     lbl[mask] = donor_lbl[mask]
@@ -113,7 +117,7 @@ class CopyPaste:
             for c in self.hard_classes:
                 if c in selected_classes and c not in exist_classes:
                     exist_classes.append(int(c))
-            paste_hard_classes(img, lbl, cp_mask, d_img, d_lbl, self.hard_lut)
+            self.dataset.host.paste_hard_classes(img, lbl, cp_mask, d_img, d_lbl, self.hard_lut)
             if len(exist_classes) >= len(self.hard_classes) * 0.5:
                 break
             selected_classes = [c for c in self.hard_classes if c not in exist_classes]
@@ -147,7 +151,7 @@ class ClassMix:
         chosen = rng.choice(classes, size=max(classes.size // 2, 1), replace=False)
         lut = np.zeros(256, bool)
         lut[chosen] = True
-        paste_hard_classes(img, lbl, cp_mask, d_img, d_lbl, lut)
+        self.dataset.host.paste_hard_classes(img, lbl, cp_mask, d_img, d_lbl, lut)
         return img, lbl, cp_mask
 
 

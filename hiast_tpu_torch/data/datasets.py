@@ -22,10 +22,12 @@ preprocessor (``set_preprocessor``: HPA's ``CopyPaste``, ``ClassMix`` or
 ``CutMix``) runs on each sample before the geometric augs.  A device colour
 aug in ``aug_type`` ('CCA', 'SCA') is left to the train step.
 Samples leave the host as uint8 [H, W, 3] images and uint8 [H, W] labels,
-batched by ``data/pipeline.py`` exactly as in the JAX package.  PNGs decode
-through the port's codec (``data/png.py``) with the row unfilter the caller
-names for its device (``unfilter``); PIL is imported only for files that
-are not PNGs.
+batched by ``data/pipeline.py`` exactly as in the JAX package.  The pixel
+work (the PNG row unfilter, every resize and crop, the pastes) goes through
+the ``HostOps`` the caller names for its device (``host``:
+``native_ops.host_ops_for``, the port's C++ beside a card, numpy on the
+CPU).  PNGs decode through the port's codec (``data/png.py``); PIL is
+imported only for files that are not PNGs.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ from typing import Callable
 import numpy as np
 
 from hiast_tpu_torch.data import augment as A
+from hiast_tpu_torch.data.native_ops import HostOps
 from hiast_tpu_torch.data.png import Unfilter, decode_png_file, unfilter_plain
 from hiast_tpu_torch.data.remap import remap_label
 from hiast_tpu_torch.registry import DATASET
@@ -93,12 +96,12 @@ class BaseDataset:
         aug_type=(),
         num_classes: int = 19,
         *,
-        unfilter: Unfilter,
+        host: HostOps,
     ):
         self.cfg = cfg
         self.pseudo_dir = pseudo_dir
         self.num_classes = num_classes
-        self.unfilter = unfilter
+        self.host = host
         self.preprocessor = None
         host_augs, _ = A.split_aug_types(list(aug_type))  # a colour aug is the train step's
         self.aug_fns = [self.build_aug_fn(a) for a in host_augs]
@@ -132,7 +135,8 @@ class BaseDataset:
         """'FDA-Source' / 'FDA-Target': amplitudes from the images of
         ``cfg.dataset.<section>``, decoded as this dataset decodes."""
         node = getattr(self.cfg.dataset, section)
-        return A.FDA(node.json_path, node.image_dir, lambda path: read_rgb(path, self.unfilter))
+        return A.FDA(node.json_path, node.image_dir, lambda path: read_rgb(path, self.host.unfilter),
+                     host=self.host)
 
     # -- core ---------------------------------------------------------------
     def __len__(self):
@@ -152,16 +156,16 @@ class BaseDataset:
         ``pseudo_dir`` the label is ``<pseudo_dir>/<name>_pseudo_label.png``,
         resized (nearest) to the image when the sizes differ."""
         img_path = self.img_paths[index]
-        img = read_rgb(img_path, self.unfilter)
+        img = read_rgb(img_path, self.host.unfilter)
         if self.pseudo_dir is not None:
             name = os.path.splitext(os.path.basename(img_path))[0]
-            lbl = read_gray(os.path.join(self.pseudo_dir, f"{name}_pseudo_label.png"), self.unfilter)
+            lbl = read_gray(os.path.join(self.pseudo_dir, f"{name}_pseudo_label.png"), self.host.unfilter)
         else:
             lbl = self.read_label(self.lbl_paths[index])
         if lbl is None:
             lbl = np.full(img.shape[:2], IGNORE, np.uint8)
         if lbl.shape != img.shape[:2]:
-            lbl = A.resize_nearest(lbl, img.shape[0], img.shape[1])
+            lbl = self.host.resize_nearest(lbl, img.shape[0], img.shape[1])
         return img, lbl, img_path
 
     def get_item(self, index: int, rng: np.random.Generator) -> dict:
@@ -208,18 +212,18 @@ class BaseDataset:
 @DATASET.register("GTAV")
 class GTAVDataset(BaseDataset):
     def read_label(self, path):
-        return remap_label(read_gray(path, self.unfilter), "GTAV")
+        return remap_label(read_gray(path, self.host.unfilter), "GTAV")
 
     def build_aug_fn(self, aug_type):
         if not aug_type:
             return None
         if aug_type == "MS":
             ch, cw = self.cfg.dataset.crop_size
-            return A.GeometricAug(ch, cw, (341, 950), w2h_ratio=2)
+            return A.GeometricAug(ch, cw, (341, 950), w2h_ratio=2, host=self.host)
         if aug_type == "DACS":
-            return A.ResizeCrop(720, 1280, 512, 512)
+            return A.ResizeCrop(720, 1280, 512, 512, host=self.host)
         if aug_type.startswith("PRS"):
-            return A.Resize(*A.parse_resize_params(aug_type))
+            return A.Resize(*A.parse_resize_params(aug_type), host=self.host)
         if aug_type == "FDA-Target":
             return self.fda("target")
         raise ValueError(f"invalid aug_type {aug_type!r}")
@@ -228,7 +232,7 @@ class GTAVDataset(BaseDataset):
 @DATASET.register("SYNTHIA")
 class SYNTHIADataset(BaseDataset):
     def read_label(self, path):
-        lbl = decode_png_file(path, self.unfilter, palette=False)  # 16-bit RGB: uint16
+        lbl = decode_png_file(path, self.host.unfilter, palette=False)  # 16-bit RGB: uint16
         if lbl is None:
             lbl = _pil_read(path, None)
         if lbl.ndim == 3:
@@ -240,11 +244,11 @@ class SYNTHIADataset(BaseDataset):
             return None
         if aug_type == "MS":
             ch, cw = self.cfg.dataset.crop_size
-            return A.GeometricAug(ch, cw, (341, 640), w2h_ratio=2)
+            return A.GeometricAug(ch, cw, (341, 640), w2h_ratio=2, host=self.host)
         if aug_type == "DACS":
-            return A.ResizeCrop(760, 1280, 512, 512)
+            return A.ResizeCrop(760, 1280, 512, 512, host=self.host)
         if aug_type.startswith("PRS"):
-            return A.Resize(*A.parse_resize_params(aug_type))
+            return A.Resize(*A.parse_resize_params(aug_type), host=self.host)
         if aug_type == "FDA-Target":
             return self.fda("target")
         raise ValueError(f"invalid aug_type {aug_type!r}")
@@ -255,7 +259,7 @@ class CityscapesDataset(BaseDataset):
     def read_label(self, path):
         if self.num_classes not in (9, 19):
             raise ValueError(f"Cityscapes has 19 or 9 classes, not {self.num_classes}")
-        lbl = read_gray(path, self.unfilter)
+        lbl = read_gray(path, self.host.unfilter)
         if self.num_classes == 9:  # Cityscapes -> Oxford scenario
             lbl = remap_label(lbl, "Cityscapes9")
         return lbl
@@ -265,13 +269,13 @@ class CityscapesDataset(BaseDataset):
             return None
         if aug_type == "MS":
             ch, cw = self.cfg.dataset.crop_size
-            return A.GeometricAug(ch, cw, (341, 1000), w2h_ratio=2)
+            return A.GeometricAug(ch, cw, (341, 1000), w2h_ratio=2, host=self.host)
         if aug_type == "OMS":
-            return A.GeometricAug(768, 1024, (341, 1000), w2h_ratio=1280 / 960)
+            return A.GeometricAug(768, 1024, (341, 1000), w2h_ratio=1280 / 960, host=self.host)
         if aug_type == "DACS":
-            return A.ResizeCrop(512, 1024, 512, 512)
+            return A.ResizeCrop(512, 1024, 512, 512, host=self.host)
         if aug_type.startswith("PRS"):
-            return A.Resize(*A.parse_resize_params(aug_type))
+            return A.Resize(*A.parse_resize_params(aug_type), host=self.host)
         if aug_type == "FDA-Source":
             return self.fda("source")
         if aug_type == "FDA-Target":
@@ -286,7 +290,7 @@ class OxfordDataset(BaseDataset):
             raise ValueError(f"Oxford has 9 classes, not {self.num_classes}")
         if not path.endswith(".png"):  # the unlabelled train split
             return None
-        lbl = decode_png_file(path, self.unfilter, palette=False)
+        lbl = decode_png_file(path, self.host.unfilter, palette=False)
         if lbl is None:
             lbl = _pil_read(path, None)
         if lbl.dtype == np.uint16:  # as PIL reads 16-bit files (module docstring)
@@ -299,17 +303,18 @@ class OxfordDataset(BaseDataset):
         if not aug_type:
             return None
         if aug_type == "OMS":
-            return A.GeometricAug(768, 1024, (341, 900), w2h_ratio=1280 / 960)
+            return A.GeometricAug(768, 1024, (341, 900), w2h_ratio=1280 / 960, host=self.host)
         if aug_type.startswith("PRS"):
-            return A.Resize(*A.parse_resize_params(aug_type))
+            return A.Resize(*A.parse_resize_params(aug_type), host=self.host)
         if aug_type == "FDA-Source":
             return self.fda("source")
         raise ValueError(f"invalid aug_type {aug_type!r}")
 
 
-def build_dataset(cfg, section, pseudo_dir=None, aug_type=None, num_classes=None, *, unfilter: Unfilter):
+def build_dataset(cfg, section, pseudo_dir=None, aug_type=None, num_classes=None, *, host: HostOps):
     """Instantiate the dataset named by a cfg.dataset.<section> block; its
-    PNGs unfilter with ``unfilter`` (``png.unfilter_for`` the run's device)."""
+    pixel work runs on ``host`` (``native_ops.host_ops_for`` the run's
+    device)."""
     node = getattr(cfg.dataset, section)
     return DATASET[node.type](
         cfg,
@@ -318,5 +323,5 @@ def build_dataset(cfg, section, pseudo_dir=None, aug_type=None, num_classes=None
         pseudo_dir=pseudo_dir,
         aug_type=aug_type if aug_type is not None else list(getattr(node, "aug_type", [])),
         num_classes=num_classes or cfg.dataset.num_classes,
-        unfilter=unfilter,
+        host=host,
     )

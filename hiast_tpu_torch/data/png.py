@@ -18,25 +18,22 @@ data path, without a C++ library that needs zlib's headers:
   malformed ones raise ``ValueError`` naming the file; bytes that are not a
   PNG give None (callers hand such files to PIL).
 
-Python's zlib inflates; the rows are then unfiltered by one of two
-functions of the same contract, ``unfilter(raw [h, 1 + stride], bpp) ->
-[h, stride]``: ``unfilter_plain`` in numpy and Python (the Average and
-Paeth filters are serial along a row, so those rows take a Python loop)
-and ``unfilter_native``, the host C function of ``csrc/png_unfilter.cu``
-loaded with ctypes.  ``unfilter_for`` picks one from the device a run
-trains or serves on; nothing falls back from one to the other.
+Python's zlib inflates (it is C and releases the interpreter lock); the
+rows are then unfiltered by a function of the contract ``unfilter(raw [h,
+1 + stride], bpp) -> [h, stride]``: ``unfilter_plain`` here, in numpy and
+Python (the Average and Paeth filters are serial along a row, so those
+rows take a Python loop), or ``data/native_ops.py:unfilter_native``, the
+C function of ``csrc/host_ops.cpp``, which gives the same bytes.  The
+caller passes the one of its ``HostOps`` (``native_ops.host_ops_for`` the
+run's device); nothing falls back from one to the other.
 """
 from __future__ import annotations
 
-import ctypes
 import struct
-import threading
 import zlib
 from typing import Callable
 
 import numpy as np
-
-from hiast_tpu_torch.ops.cuda import build
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # PNG colour type -> samples per pixel
@@ -137,44 +134,6 @@ def unfilter_plain(raw: np.ndarray, bpp: int) -> np.ndarray:
         else:
             out[y] = _serial_row(data[y], up, bpp, kind)
     return out
-
-
-_native: list = []
-_native_lock = threading.Lock()
-
-
-def _native_fn():
-    with _native_lock:
-        if not _native:
-            fn = build.load("png_unfilter").png_unfilter
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int]
-            fn.restype = ctypes.c_int
-            _native.append(fn)
-        return _native[0]
-
-
-def unfilter_native(raw: np.ndarray, bpp: int) -> np.ndarray:
-    """``unfilter_plain``'s contract, by ``csrc/png_unfilter.cu`` (built at
-    first use; a failed build raises).  ctypes releases the interpreter lock
-    for the call, so loader threads unfilter in parallel."""
-    fn = _native_fn()
-    raw = np.ascontiguousarray(raw, np.uint8)
-    h, stride = raw.shape[0], raw.shape[1] - 1
-    out = np.empty((h, stride), np.uint8)
-    status = fn(raw.ctypes.data, out.ctypes.data, h, stride, int(bpp))
-    if status:
-        raise ValueError(f"row {status - 1} has filter type {int(raw[status - 1, 0])}")
-    return out
-
-
-def unfilter_for(device_type: str) -> Unfilter:
-    """The unfilter of a run on a ``device_type`` ('cuda' or 'cpu') device:
-    the native one beside a card, the plain one on the CPU (the tests)."""
-    if device_type == "cuda":
-        return unfilter_native
-    if device_type == "cpu":
-        return unfilter_plain
-    raise ValueError(f"no PNG unfilter for device type {device_type!r}")
 
 
 # -- decoding -------------------------------------------------------------------

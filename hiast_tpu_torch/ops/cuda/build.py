@@ -1,11 +1,13 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's native libraries.
 
 Each ``csrc/*.cu`` file compiles with nvcc into its own shared library with
 a plain C interface, loaded with ctypes (no PyTorch headers, so a build
-takes seconds).  Libraries go to ``build/kernels/`` at the repository root,
-named by a hash of their source and flags, and are built at first use: in
-the process that first launches a kernel, never at import.  A missing nvcc
-or a failed build raises; nothing falls back to the plain versions.
+takes seconds); each ``csrc/*.cpp`` file (host code only) compiles the same
+way with the host C++ compiler, ``$CXX`` or else ``c++``.  Libraries go to
+``build/kernels/`` at the repository root, named by a hash of their source
+and flags, and are built at first use: in the process that first calls
+into one, never at import.  A missing compiler or a failed build raises;
+nothing falls back to the plain versions.
 """
 from __future__ import annotations
 
@@ -23,6 +25,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# No -march=native and no -ffast-math; -ffp-contract=off keeps a*(1-f) + b*f
+# two roundings, as numpy computes it, so the host ops match their plain
+# versions bit for bit on any host.
+CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off")
+FLAGS = {".cu": NVCC_FLAGS, ".cpp": CXX_FLAGS}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -40,47 +47,81 @@ def find_nvcc() -> str:
     return found
 
 
+def find_cxx() -> str:
+    """The host C++ compiler: ``$CXX`` when it is set (and then only it),
+    else ``c++`` on PATH."""
+    name = os.environ.get("CXX") or "c++"
+    found = shutil.which(name)
+    if not found:
+        raise RuntimeError(f"the host C++ compiler {name!r} (from $CXX, else c++) was not found: "
+                           "the host ops cannot be built")
+    return found
+
+
+def cxx_version() -> str:
+    """The first line of the host compiler's ``--version``."""
+    out = subprocess.run([find_cxx(), "--version"], capture_output=True, text=True, check=True).stdout
+    return out.splitlines()[0] if out else "unknown"
+
+
+def _source(name: str) -> str:
+    for ext in FLAGS:
+        path = os.path.join(CSRC, name + ext)
+        if os.path.exists(path):
+            return path
+    raise FileNotFoundError(f"no csrc/{name}.cu or csrc/{name}.cpp")
+
+
 def source_names() -> list[str]:
-    return sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu"))
+    return sorted(os.path.splitext(f)[0] for f in os.listdir(CSRC) if os.path.splitext(f)[1] in FLAGS)
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    src = _source(name)
+    flags = FLAGS[os.path.splitext(src)[1]]
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
 
 
 def build(names: list[str]) -> list[str]:
-    """Compile each ``csrc/<name>.cu`` whose library is not built yet, one
-    nvcc per file, all started together; returns the library paths.  The
-    compiler's resource report (``-Xptxas -v``) is kept in ``<library>.log``."""
+    """Compile each ``csrc/<name>.cu`` or ``.cpp`` whose library is not
+    built yet, one compiler per file, all started together; returns the
+    library paths.  The compiler's output (for nvcc the resource report of
+    ``-Xptxas -v``) is kept in ``<library>.log``.  Each library is written
+    to a temporary file first and renamed into place, so processes that
+    build the same one at once each leave a whole file."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc = find_nvcc()
+    sources = {name: _source(name) for name in names}
+    exts = {os.path.splitext(src)[1] for src in sources.values()}
+    compilers = {ext: (find_nvcc() if ext == ".cu" else find_cxx()) for ext in exts}
     running = []
-    for name in names:
+    for name, src in sources.items():
         out = library_path(name)
         if os.path.exists(out):
             continue
+        ext = os.path.splitext(src)[1]
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+        cmd = [compilers[ext], *FLAGS[ext], "-o", tmp, src]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        running.append((name, cmd, tmp, out, proc))
+        running.append((src, cmd, tmp, out, proc))
     failed = []
-    for name, cmd, tmp, out, proc in running:
+    for src, cmd, tmp, out, proc in running:
         stdout, stderr = proc.communicate()
         with open(out + ".log", "w") as f:
             f.write(" ".join(cmd) + "\n" + stdout + stderr)
         if proc.returncode == 0:
             os.replace(tmp, out)
         else:
-            failed.append(f"{name}.cu:\n{stderr[-4000:]}")
+            failed.append(f"{os.path.basename(src)}:\n{stderr[-4000:]}")
     if failed:
-        raise RuntimeError("nvcc failed to build " + "\n".join(failed))
+        raise RuntimeError("failed to build " + "\n".join(failed))
     return [library_path(n) for n in names]
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu`` or ``.cpp``, built first if
+    needed."""
     with _lock:
         if name not in _loaded:
             (path,) = build([name])

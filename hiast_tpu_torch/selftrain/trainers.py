@@ -31,8 +31,8 @@ import torch
 
 from hiast_tpu_torch.data.augment import split_aug_types
 from hiast_tpu_torch.data.datasets import build_dataset
+from hiast_tpu_torch.data.native_ops import host_ops_for
 from hiast_tpu_torch.data.pipeline import BatchIterator, infinite_batches, prefetched
-from hiast_tpu_torch.data.png import unfilter_for
 from hiast_tpu_torch.evaluation import make_val_step, run_validation
 from hiast_tpu_torch.models.segmentors import build_segmentor
 from hiast_tpu_torch.registry import PREPROCESSOR, TRAINER
@@ -66,7 +66,7 @@ class BaseTrainer:
     def __init__(self, cfg, device: torch.device | str = "cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
-        self.unfilter = unfilter_for(self.device.type)  # PNG rows: native beside a card
+        self.host = host_ops_for(self.device.type)  # the data path's pixel work: C++ beside a card
         self.assert_cfg()
         self.initialize()
         self.build_all_model()
@@ -152,13 +152,13 @@ class BaseTrainer:
     def build_train_data_reader(self):
         cfg = self.cfg
         if self.needs_source:
-            ds = build_dataset(cfg, "source", unfilter=self.unfilter)
+            ds = build_dataset(cfg, "source", host=self.host)
             self.s_dataset = ds
             self.s_stream = infinite_batches(
                 ds, cfg.train.batch_size, seed=cfg.train.random_seed, num_workers=self._workers()
             )
         if self.needs_target:
-            ds = build_dataset(cfg, "target", pseudo_dir=cfg.dataset.target.pseudo_dir, unfilter=self.unfilter)
+            ds = build_dataset(cfg, "target", pseudo_dir=cfg.dataset.target.pseudo_dir, host=self.host)
             self.t_dataset = ds
             self.t_stream = infinite_batches(
                 ds, cfg.train.batch_size, seed=cfg.train.random_seed + 1, num_workers=self._workers()
@@ -167,7 +167,7 @@ class BaseTrainer:
     def build_val_data_reader(self):
         cfg = self.cfg
         self.v_dataset = (
-            build_dataset(cfg, "val", aug_type=[], unfilter=self.unfilter) if cfg.dataset.val.type else None
+            build_dataset(cfg, "val", aug_type=[], host=self.host) if cfg.dataset.val.type else None
         )
         self.val_step = None
         if self.v_dataset is not None and cfg.dataset.val.resize_size:
@@ -410,7 +410,7 @@ class ConsistencySelfTrainingTrainer(SelfTrainingTrainer):
     def build_train_data_reader(self):
         cfg = self.cfg
         pseudo_dir = cfg.dataset.target.pseudo_dir
-        ds = build_dataset(cfg, "target", pseudo_dir=pseudo_dir, unfilter=self.unfilter)
+        ds = build_dataset(cfg, "target", pseudo_dir=pseudo_dir, host=self.host)
         kind = cfg.preprocessor.type
         if kind == "CopyPaste" and not ds.get_samples_with_class():
             # the reference fails here too (base_dataset.py:61-77, consistency trainer :27-44)

@@ -23,7 +23,8 @@ from hiast_tpu.data.datasets import build_dataset as jax_build_dataset
 from hiast_tpu_torch.config import default_config
 from hiast_tpu_torch.data.copy_paste import CopyPaste
 from hiast_tpu_torch.data.datasets import build_dataset
-from hiast_tpu_torch.data.png import unfilter_plain, write_png
+from hiast_tpu_torch.data.native_ops import PLAIN
+from hiast_tpu_torch.data.png import write_png
 from hiast_tpu_torch.registry import PREPROCESSOR, populate
 
 N_IMAGES, IMG_H, IMG_W, C = 6, 60, 120, 19
@@ -71,7 +72,7 @@ def _pair(root, aug, source="GTAV", class_value=None):
         cfg.preprocessor.type = "CopyPaste"
         cfg.preprocessor.copy_paste.selected_num_classes = 14
         out.append(cfg)
-    ds = build_dataset(out[0], "target", pseudo_dir=pseudo, unfilter=unfilter_plain)
+    ds = build_dataset(out[0], "target", pseudo_dir=pseudo, host=PLAIN)
     ds.set_preprocessor(PREPROCESSOR["CopyPaste"](out[0], ds, class_value))
     jds = jax_build_dataset(out[1], "target", pseudo_dir=pseudo)
     jds.set_preprocessor(JaxCopyPaste(out[1], jds, class_value))

@@ -23,6 +23,7 @@ from PIL import Image
 
 from hiast_tpu_torch.data import augment as A
 from hiast_tpu_torch.data import png
+from hiast_tpu_torch.data.native_ops import PLAIN
 from hiast_tpu_torch.data.pipeline import BatchIterator, pad_batch
 
 RNG = np.random.default_rng(33)
@@ -78,7 +79,7 @@ def test_declines_what_it_does_not_read(tmp_path):
 def test_resize_follows_cv2(src, dst):
     img = RNG.integers(0, 256, size=src + (3,)).astype(np.uint8)
     lbl = RNG.integers(0, 19, size=src).astype(np.uint8)
-    got_img, got_lbl = A.Resize(*dst)(img, lbl)
+    got_img, got_lbl = A.Resize(*dst, host=PLAIN)(img, lbl)
     want_img = cv2.resize(img, dst[::-1], interpolation=cv2.INTER_LINEAR)
     want_lbl = cv2.resize(lbl, dst[::-1], interpolation=cv2.INTER_NEAREST)
     np.testing.assert_array_equal(got_lbl, want_lbl)
@@ -88,7 +89,7 @@ def test_resize_follows_cv2(src, dst):
 def test_resize_skips_matching_sizes():
     img = RNG.integers(0, 256, size=(16, 32, 3)).astype(np.uint8)
     lbl = RNG.integers(0, 19, size=(16, 32)).astype(np.uint8)
-    got_img, got_lbl = A.Resize(16, 32)(img, lbl)
+    got_img, got_lbl = A.Resize(16, 32, host=PLAIN)(img, lbl)
     assert got_img is img and got_lbl is lbl
 
 
@@ -125,7 +126,7 @@ def test_dataset_and_batches_match_jax(tmp_path):
         return cfg
 
     ours = build_dataset(configure(default_config()), "target", aug_type=["PRS-32-48"],
-                         unfilter=png.unfilter_plain)
+                         host=PLAIN)
     theirs = jax_build_dataset(configure(jax_default_config()), "target", aug_type=["PRS-32-48"])
     got = list(BatchIterator(ours, 2, shuffle=True, seed=888, drop_last=False))
     want = list(JaxBatchIterator(theirs, 2, shuffle=True, seed=888, drop_last=False))
@@ -164,7 +165,7 @@ def _cityscapes_pair(tmp_path, n, shape=(32, 48)):
         return cfg
 
     return (
-        lambda: build_dataset(configure(default_config()), "val", aug_type=[], unfilter=png.unfilter_plain),
+        lambda: build_dataset(configure(default_config()), "val", aug_type=[], host=PLAIN),
         lambda: jax_build_dataset(configure(jax_default_config()), "val", aug_type=[]),
     )
 

@@ -39,7 +39,8 @@ from hiast_tpu.registry import populate as jax_populate
 from hiast_tpu_torch.config import default_config
 from hiast_tpu_torch.data import copy_paste
 from hiast_tpu_torch.data.datasets import build_dataset
-from hiast_tpu_torch.data.png import unfilter_plain, write_png
+from hiast_tpu_torch.data.native_ops import PLAIN
+from hiast_tpu_torch.data.png import write_png
 from hiast_tpu_torch.models.segmentors import build_segmentor
 from hiast_tpu_torch.ops.fda import fda_device
 from hiast_tpu_torch.registry import populate
@@ -183,7 +184,7 @@ def test_class_mix_and_cut_mix_match_jax(mix_root, kind):
         cfg.dataset.target.json_path = str(mix_root / "mix.json")
         cfg.dataset.target.image_dir = str(mix_root)
         cfgs.append(cfg)
-    ds = build_dataset(cfgs[0], "target", aug_type=[], unfilter=unfilter_plain)
+    ds = build_dataset(cfgs[0], "target", aug_type=[], host=PLAIN)
     jds = jax_build_dataset(cfgs[1], "target", aug_type=[])
     mix = getattr(copy_paste, kind)(cfgs[0], ds)
     jmix = getattr(jax_copy_paste, kind)(cfgs[1], jds)

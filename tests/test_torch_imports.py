@@ -6,9 +6,12 @@
 - yaml, PIL and cv2, which the card's machine may lack, are imported only
   inside the functions that need them, never at module level.
 - Importing the port's CLIs in a fresh interpreter leaves jax unloaded,
-  and builds or loads no native library (the PNG unfilter of
-  ``csrc/png_unfilter.cu`` loads at its first call, with the C signature
-  that ``data/png.py`` declares).
+  and builds or loads no native library (the host ops of
+  ``csrc/host_ops.cpp`` load at their first call, with the C signatures
+  that ``data/native_ops.py`` declares).
+- No file of the port (its Python, its C++ and CUDA sources and
+  chip_smoke.py) names the JAX package's native library: the port builds
+  its own.
 """
 import ast
 import os
@@ -60,7 +63,8 @@ def test_the_port_has_files_to_check():
                    ("models", "segformer.py"), ("evaluation.py",), ("cli", "validate.py"),
                    ("ops", "losses.py"), ("selftrain", "train_state.py"), ("selftrain", "trainers.py"),
                    ("utils", "recorder.py"), ("utils", "logging_utils.py"), ("cli", "train.py"),
-                   ("ops", "color_aug.py"), ("data", "copy_paste.py"), ("data", "png.py")):
+                   ("ops", "color_aug.py"), ("data", "copy_paste.py"), ("data", "png.py"),
+                   ("data", "native_ops.py")):
         assert os.path.join(REPO, "hiast_tpu_torch", *module) in files
 
 
@@ -82,8 +86,8 @@ def test_importing_the_cli_loads_no_jax():
         " r.populate();"
         " bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'hiast_tpu', 'yaml', 'PIL', 'cv2'));"
-        " from hiast_tpu_torch.data import png; from hiast_tpu_torch.ops.cuda import build;"
-        " bad += ['png_unfilter loaded'] if png._native or build._loaded else [];"
+        " from hiast_tpu_torch.data import native_ops; from hiast_tpu_torch.ops.cuda import build;"
+        " bad += ['a native library loaded'] if native_ops._lib or build._loaded else [];"
         " print(bad); sys.exit(1 if bad else 0)"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -93,20 +97,37 @@ def test_importing_the_cli_loads_no_jax():
 
 
 def test_png_unfilter_source_matches_its_loader():
-    """csrc/png_unfilter.cu is one of the sources the build compiles, and its
-    C function takes what ``data/png.py`` passes through ctypes: two
-    pointers, two 64-bit counts and an int, returning an int."""
+    """csrc/host_ops.cpp is one of the sources the build compiles, host code
+    only, and each of its C functions takes what ``data/native_ops.py``
+    passes through ctypes: the unfilter two pointers, two 64-bit counts and
+    an int, returning an int; the pixel ops pointers and int64 sizes."""
     import re
 
+    from hiast_tpu_torch.data import native_ops
     from hiast_tpu_torch.ops.cuda import build
 
-    assert "png_unfilter" in build.source_names()
-    with open(os.path.join(build.CSRC, "png_unfilter.cu")) as f:
+    assert "host_ops" in build.source_names() and "png_unfilter" not in build.source_names()
+    with open(os.path.join(build.CSRC, "host_ops.cpp")) as f:
         source = f.read()
-    assert re.search(r'extern "C" int png_unfilter\(const uint8_t\* raw, uint8_t\* out, long long h, '
+    assert re.search(r'int png_unfilter\(const uint8_t\* raw, uint8_t\* out, long long h, '
                      r'long long stride, int bpp\)', source)
-    assert "__global__" not in source  # host code only
-    with open(os.path.join(REPO, "hiast_tpu_torch", "data", "png.py")) as f:
-        loader = f.read()
-    assert ('fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int]'
-            in loader and "fn.restype = ctypes.c_int" in loader)
+    assert "__global__" not in source and 'extern "C" {' in source
+    c_types = {"const uint8_t*": "c_void_p", "uint8_t*": "c_void_p", "int64_t": "c_long", "int": "c_int",
+               "long long": "c_long"}
+    for name, (argtypes, restype) in native_ops._SIGNATURES.items():
+        match = re.search(rf"\n(void|int) {name}\(([^)]*)\)", source)
+        assert match, name
+        params = [" ".join(p.split()[:-1]) for p in match.group(2).split(",")]
+        assert [c_types[p] for p in params] == [t.__name__ for t in argtypes], name
+        assert (restype is None) == (match.group(1) == "void"), name
+
+
+def test_no_port_file_names_the_jax_native_library():
+    files = _port_files()
+    files += [os.path.join(REPO, "hiast_tpu_torch", "csrc", n)
+              for n in os.listdir(os.path.join(REPO, "hiast_tpu_torch", "csrc"))]
+    for path in files:
+        with open(path) as f:
+            text = f.read()
+        for word in ("native/", "libhiast_host_ops"):
+            assert word not in text, f"{os.path.relpath(path, REPO)} names {word!r}"

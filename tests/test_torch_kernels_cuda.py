@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain versions, on a card, and
-the card path's two other native pieces: the PNG unfilter of
-csrc/png_unfilter.cu (host code, same build) and the strong view on the
-card.
+the strong view on the card.  (The host C++ of csrc/host_ops.cpp, the PNG
+unfilter among it, builds and is tested on the CPU:
+tests/test_torch_host_ops.py.)
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  The
 file imports neither JAX nor the JAX package, so on the card's machine
@@ -439,21 +439,6 @@ def test_sra_attention_backward_gives_the_same_bits(cuda_device, b, nq, nkv, h):
         grads.append((dq, dkv))
     torch.cuda.synchronize()
     assert torch.equal(grads[0][0], grads[1][0]) and torch.equal(grads[0][1], grads[1][1])
-
-
-@pytest.mark.parametrize("h,w,channels", [(64, 96, 3), (33, 17, 4), (40, 2048, 1)])
-def test_png_unfilter_native_matches_plain(cuda_device, h, w, channels):
-    """The host-side unfilter of csrc/png_unfilter.cu (the card's path) gives
-    the plain one's bytes on rows under every filter type."""
-    from hiast_tpu_torch.data import png
-
-    rng = np.random.default_rng(h)
-    raw = rng.integers(0, 256, size=(h, w * channels + 1)).astype(np.uint8)
-    raw[:, 0] = np.arange(h) % 5
-    np.testing.assert_array_equal(png.unfilter_native(raw, channels), png.unfilter_plain(raw, channels))
-    raw[h // 2, 0] = 9
-    with pytest.raises(ValueError, match=f"row {h // 2} has filter type 9"):
-        png.unfilter_native(raw, channels)
 
 
 @pytest.mark.parametrize("kind", ["CCA", "SCA"])

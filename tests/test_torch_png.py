@@ -7,7 +7,7 @@ RGBA; 16-bit gray and RGB (read as big-endian uint16); palette images at 1,
 2, 4 and 8 bits (looked up in PLTE, or their indices); gray at 1, 2 and 4
 bits.  Interlaced files, unknown filter types and truncated data raise
 ``ValueError`` naming the file.  The native unfilter is held against the
-plain one on the card (tests/test_torch_kernels_cuda.py).
+plain one in tests/test_torch_host_ops.py; here, which one a device gets.
 """
 import io
 import struct
@@ -18,6 +18,7 @@ import pytest
 from PIL import Image
 
 from hiast_tpu_torch.data import png
+from hiast_tpu_torch.data.native_ops import host_ops_for, unfilter_native
 from hiast_tpu_torch.data.datasets import read_gray, read_rgb
 
 RNG = np.random.default_rng(17)
@@ -149,7 +150,9 @@ def test_refusals_name_the_file(tmp_path):
 
 
 def test_unfilter_is_chosen_by_device():
-    assert png.unfilter_for("cpu") is png.unfilter_plain
-    assert png.unfilter_for("cuda") is png.unfilter_native
+    """One switch for every host op: the device's ``HostOps`` carries its
+    unfilter."""
+    assert host_ops_for("cpu").unfilter is png.unfilter_plain
+    assert host_ops_for("cuda").unfilter is unfilter_native
     with pytest.raises(ValueError):
-        png.unfilter_for("mps")
+        host_ops_for("mps")

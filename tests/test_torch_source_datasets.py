@@ -33,7 +33,8 @@ from hiast_tpu.data.datasets import build_dataset as jax_build_dataset
 from hiast_tpu.registry import populate as jax_populate
 from hiast_tpu_torch.config import default_config
 from hiast_tpu_torch.data.datasets import build_dataset
-from hiast_tpu_torch.data.png import unfilter_plain, write_png
+from hiast_tpu_torch.data.native_ops import PLAIN
+from hiast_tpu_torch.data.png import write_png
 from hiast_tpu_torch.data.remap import GTAV_ID_MAP, OXFORD_ID_MAP, SYNTHIA_ID_MAP
 from hiast_tpu_torch.registry import populate
 
@@ -123,7 +124,7 @@ def _cfgs(root, source: str, target: str):
 def _both(root, source, target, section, aug_type):
     jcfg, cfg = _cfgs(root, source, target)
     return (jax_build_dataset(jcfg, section, aug_type=aug_type),
-            build_dataset(cfg, section, aug_type=aug_type, unfilter=unfilter_plain))
+            build_dataset(cfg, section, aug_type=aug_type, host=PLAIN))
 
 
 @pytest.mark.parametrize("kind", ["GTAV", "SYNTHIA", "Cityscapes", "Oxford"])
@@ -148,7 +149,7 @@ def test_oxford_unlabelled_split_is_ignored(root):
     for c in (jcfg, cfg):
         c.dataset.target.json_path = str(root / "oxford_train.json")
     want_ds = jax_build_dataset(jcfg, "target", aug_type=[])
-    ds = build_dataset(cfg, "target", aug_type=[], unfilter=unfilter_plain)
+    ds = build_dataset(cfg, "target", aug_type=[], host=PLAIN)
     assert ds.read_label(ds.lbl_paths[0]) is None
     img, lbl, _ = ds.load_data(0)
     assert lbl.shape == img.shape[:2] and bool((lbl == 255).all())

@@ -3,8 +3,9 @@ the 'MS' geometric aug, the Cityscapes target set read with pseudo-labels
 (``pseudo_dir``), and the ``infinite_batches`` stream.
 
 Tolerances: labels and batch order exactly; MS images within one intensity
-level (the JAX package's C++ op, or its cv2 fallback, and the port's numpy
-version round the bilinear sums in other orders).
+level (the JAX package's C++ op, or its cv2 fallback, and the port's
+versions round the bilinear sums in other orders); the port's native MS
+crop equal to its plain one.
 """
 import json
 import os
@@ -19,22 +20,30 @@ from hiast_tpu.data.pipeline import infinite_batches as jax_infinite_batches
 from hiast_tpu_torch.config import default_config
 from hiast_tpu_torch.data import augment as A
 from hiast_tpu_torch.data.datasets import build_dataset
+from hiast_tpu_torch.data.native_ops import NATIVE, PLAIN
 from hiast_tpu_torch.data.pipeline import infinite_batches
-from hiast_tpu_torch.data.png import unfilter_plain, write_png
+from hiast_tpu_torch.data.png import write_png
 
 N_IMAGES, IMG_H, IMG_W = 7, 120, 240
 
 
 @pytest.mark.parametrize("seed", range(6))
 def test_ms_crop_matches_jax(seed):
+    """Both host-op sets against JAX, and the native one equal to the plain
+    one bit for bit."""
     rng = np.random.default_rng(100 + seed)
     img = rng.integers(0, 256, size=(512, 1024, 3)).astype(np.uint8)
     lbl = rng.integers(0, 256, size=(512, 1024)).astype(np.uint8)
     want_img, want_lbl = JA.GeometricAug(64, 128, (341, 1000), 2)(img, lbl, np.random.default_rng(seed))
-    got_img, got_lbl = A.GeometricAug(64, 128, (341, 1000), 2)(img, lbl, np.random.default_rng(seed))
-    assert got_img.shape == (64, 128, 3) and got_img.dtype == np.uint8 and got_lbl.shape == (64, 128)
-    np.testing.assert_array_equal(got_lbl, want_lbl)
-    assert np.abs(got_img.astype(int) - want_img.astype(int)).max() <= 1
+    got = []
+    for host in (PLAIN, NATIVE):
+        got_img, got_lbl = A.GeometricAug(64, 128, (341, 1000), 2, host=host)(img, lbl, np.random.default_rng(seed))
+        assert got_img.shape == (64, 128, 3) and got_img.dtype == np.uint8 and got_lbl.shape == (64, 128)
+        np.testing.assert_array_equal(got_lbl, want_lbl)
+        assert np.abs(got_img.astype(int) - want_img.astype(int)).max() <= 1
+        got.append((got_img, got_lbl))
+    for g, w in zip(*got):
+        np.testing.assert_array_equal(g, w)
 
 
 @pytest.mark.parametrize("flip", [False, True])
@@ -95,7 +104,7 @@ def test_pseudo_label_dataset_matches_jax(target_root, aug):
     jcfg, cfg = _cfgs(target_root, aug)
     pseudo = str(target_root / "pseudo_label" / "gray_label")
     jds = jax_build_dataset(jcfg, "target", pseudo_dir=pseudo)
-    ds = build_dataset(cfg, "target", pseudo_dir=pseudo, unfilter=unfilter_plain)
+    ds = build_dataset(cfg, "target", pseudo_dir=pseudo, host=PLAIN)
     assert len(ds) == len(jds) == N_IMAGES
     assert ds.get_samples_with_class() == jds.get_samples_with_class()
     assert ds.get_file_to_idx("t_3.png") == jds.get_file_to_idx("t_3.png") == 3
@@ -117,7 +126,7 @@ def test_infinite_batches_order_matches_jax(target_root, num_workers):
     pseudo = str(target_root / "pseudo_label" / "gray_label")
     jstream = jax_infinite_batches(jax_build_dataset(jcfg, "target", pseudo_dir=pseudo), 3, seed=9,
                                    num_workers=num_workers)
-    stream = infinite_batches(build_dataset(cfg, "target", pseudo_dir=pseudo, unfilter=unfilter_plain), 3,
+    stream = infinite_batches(build_dataset(cfg, "target", pseudo_dir=pseudo, host=PLAIN), 3,
                               seed=9, num_workers=num_workers)
     for _ in range(6):
         want, got = next(jstream), next(stream)
@@ -131,7 +140,7 @@ def test_infinite_batches_refuses_a_dataset_smaller_than_a_batch(target_root):
     one partial batch); the port's raises at once."""
     _, cfg = _cfgs(target_root, ["MS"])
     ds = build_dataset(cfg, "target", pseudo_dir=str(target_root / "pseudo_label" / "gray_label"),
-                       unfilter=unfilter_plain)
+                       host=PLAIN)
     with pytest.raises(ValueError, match="fewer than one batch"):
         infinite_batches(ds, N_IMAGES + 1)
 
@@ -145,6 +154,6 @@ def test_unported_augs_raise(target_root):
         with pytest.raises(ValueError, match="invalid aug_type"):
             jax_build_dataset(jcfg, "target")
         with pytest.raises(ValueError, match="invalid aug_type"):
-            build_dataset(cfg, "target", unfilter=unfilter_plain)
+            build_dataset(cfg, "target", host=PLAIN)
     _, cfg = _cfgs(target_root, ["DACS"])
-    assert len(build_dataset(cfg, "target", unfilter=unfilter_plain).aug_fns) == 1
+    assert len(build_dataset(cfg, "target", host=PLAIN).aug_fns) == 1
