@@ -131,6 +131,28 @@
    ms; checks that the datasets use the native host ops; prints s/iter
    and the host ms of a sample with and without the replay, with the
    native host ops and with the plain ones on the same samples.
+8c. Activation remat (``runtime.remat``; ``remat_phase``): SegFormer-B5
+   self-training as phase 7 builds it, on the first batch of its stream
+   (drawn in the phase's thread from a stream then closed, so no batch is
+   assembled behind a timed step), remat off and then under each of
+   'full', 'dots', 'blocks' and 'blocks_dots', each from a fresh trainer:
+   step 1's losses and gradients against remat off, launches per step (B3
+   104 and B4 52 under every mode: the backward reruns each attention),
+   peak memory and s/iter over 4 steps after 2, the device kernels' ms and
+   the idle share of one profiled step; then DeepLab-v2/R101 consistency
+   training as phase 8 builds it, off and under 'full': the same, and the
+   BatchNorm running statistics and ``num_batches_tracked`` after step 1
+   equal to the step without remat's.  Each model's modes are timed again
+   in the reverse order (fresh trainers, 4 steps after 2), and both
+   passes' s/iter are printed.
+8d. The serving export (``export_phase``): ``cli.export_model.main`` on the
+   card at 768x1536 with the shipped ``validate.yaml``, for the round
+   driver's seeded DeepLab-v2/R101 ``.pth`` and phase 6's seeded B5; each
+   ``.pt2`` loaded back with ``load_exported``, called at batch 1 and 2 and
+   held against the live ``make_eval_forward`` on the same images (a B5
+   call launches B3 52 times: the kernel runs inside the program); prints
+   the export and load times, the file size and images/s at batch 2 of
+   the artifact and of the live forward.
 9. The main path end to end, the round driver: seeded random full-width
    DeepLab-v2/R101 weights as one ``.pth`` (warmup student and teacher); a
    configs dir whose ``sl_1.yaml`` and ``sl_2.yaml`` are the port's shipped
@@ -239,7 +261,9 @@
    ``sra_attention`` the
    times are per batch of the serving path (each stage's time times its
    launches per forward, 3, 6, 40, 3, summed), for ``sra_attention_bwd``
-   per training step.
+   per training step.  The SRA rows carry ``launches_by_path`` too: the
+   training run's, one 'blocks' remat step's (phase 8c) and one call of
+   the exported B5 program's (phase 8d).
 
 ``--profile`` adds, for the DeepLab and both B5 serving runs and short
 SegFormer and consistency training runs, a torch.profiler breakdown by
@@ -275,6 +299,16 @@ an ulp or two, and sum in other orders):
              are printed.
   B5 backward  every gradient tensor's cosine similarity with float32 no
              lower with the kernels than with the plain attention, less 0.01.
+  remat      step 1 with remat against without, the same kernels rerun on
+             the same inputs: losses within 1e-5 relative, each gradient's
+             cosine at least 0.9999 (rounding-level tensors left out, as in
+             the B5 backward; some of cuDNN's backward kernels sum in no
+             fixed order), BatchNorm running statistics within 1e-5 of each
+             buffer's scale, ``num_batches_tracked`` equal.
+  export     the artifact against the live eval forward, the same operations
+             on the same card and inputs: max |diff| <= 1e-4 of the largest
+             |logit| (the CPU test holds the same comparison at 1e-5) and
+             argmax agreement >= 0.999.
 """
 from __future__ import annotations
 
@@ -1495,6 +1529,301 @@ def dcst_phase(torch, work: str) -> dict:
           f"{plain_without_ms:.2f}")
     return {"s_per_iter": s_per_iter, "host_ms": (with_ms, without_ms), "plain_host_ms": (plain_with_ms,
             plain_without_ms), "fda_ms": fda_ms, "fda_err": fda_err}
+
+
+REMAT_STEADY = 4  # timed steps of each remat run, after one more (two in the second pass)
+REMAT_LOSS_RTOL = 1e-5  # step 1's losses with remat against without
+REMAT_GRAD_COS = 0.9999  # each gradient's cosine with the step without remat
+REMAT_BUFFER_TOL = 1e-5  # BatchNorm running statistics, of each buffer's largest magnitude
+
+
+def remat_trainer(argv: list, work_dir: str, mode: str | None):
+    """A trainer built as ``cli.train.main`` builds it from ``argv`` (its
+    work dir replaced), with ``runtime.remat`` ``mode`` (None: off)."""
+    from hiast_tpu_torch.cli.common import build_cfg, standard_parser
+    from hiast_tpu_torch.registry import TRAINER
+
+    argv = list(argv)
+    argv[argv.index("--work_dir") + 1] = work_dir
+    argv += ["runtime.remat", str(mode is not None), "runtime.remat_mode", mode or "full"]
+    cfg = build_cfg(standard_parser("chip_smoke remat").parse_args(argv))
+    return TRAINER[cfg.trainer](cfg, device="cuda")
+
+
+def remat_first_batch(trainer) -> dict:
+    """The first batch of ``trainer``'s target stream, drawn as the stream
+    draws it (its seed, epoch 0) but in this thread, without prefetch or
+    workers, from a stream that is then closed: no stream of the phase
+    assembles batches behind its timed steps."""
+    from hiast_tpu_torch.data.pipeline import infinite_batches
+
+    trainer.t_stream = infinite_batches(trainer.t_dataset, trainer.cfg.train.batch_size,
+                                        seed=trainer.cfg.train.random_seed + 1, prefetch=0, num_workers=0)
+    try:
+        return trainer._upload(trainer.next_batch())
+    finally:
+        trainer.t_stream.close()
+
+
+def remat_timed(torch, trainer, batch: dict, count, warm: int) -> float:
+    """s/iter of REMAT_STEADY steps of ``trainer`` on ``batch`` after
+    ``warm`` untimed ones (host clock; the last step's end synchronised)."""
+    for _ in range(warm):
+        trainer.step_fn(batch, count)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(REMAT_STEADY):
+        trainer.step_fn(batch, count)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / REMAT_STEADY
+
+
+def remat_run(torch, trainer, batch: dict, tag: str) -> dict:
+    """Step 1 of ``trainer`` on ``batch`` (losses, gradients, buffers,
+    launches), then REMAT_STEADY more after one: s/iter and the peak memory
+    of those steps; then the device's kernel time and idle share over one
+    profiled step."""
+    from hiast_tpu_torch.selftrain.steps import StepCount
+
+    module = trainer.segmentor.module
+    count = StepCount()
+    torch.cuda.synchronize()
+    reset_counts()
+    losses = trainer.step_fn(batch, count)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    out = {
+        "losses": {k: float(v) for k, v in losses.items()},
+        "grads": {n: p.grad.float().cpu() for n, p in module.named_parameters() if p.grad is not None},
+        "buffers": {n: b.clone() for n, b in module.named_buffers()},
+        "counts": counts,
+    }
+    trainer.step_fn(batch, count)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out["s_per_iter"] = remat_timed(torch, trainer, batch, count, warm=0)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    # the device's own time a step: its kernels' sum over a profiled step
+    # (a step waits for the card inside, so events around it would time
+    # the host too)
+    loop = []
+
+    def one_step() -> float:
+        t0 = time.perf_counter()
+        trainer.step_fn(batch, count)
+        torch.cuda.synchronize()
+        loop.append(time.perf_counter() - t0)
+        return loop[-1]
+
+    out["idle"] = profile_run(torch, f"{tag}, 1 step", one_step, table=False)
+    out["device_ms"] = (1 - out["idle"]) * loop[-1] * 1e3
+    return out
+
+
+def compare_steps(got: dict, want: dict, tag: str) -> tuple[float, float, int]:
+    """Step 1 with remat against without: losses within REMAT_LOSS_RTOL,
+    each gradient's cosine at least REMAT_GRAD_COS (tensors whose gradient
+    is at rounding level, norm below 1e-4 of the largest, left out and
+    counted, as in ``check_b5_backward``).  Returns the largest relative
+    loss difference, the lowest cosine and the tensors left out."""
+    import torch.nn.functional as F
+
+    check(sorted(got["losses"]) == sorted(want["losses"]), f"{tag}: losses {got['losses']} vs {want['losses']}")
+    loss_rel = max(abs(got["losses"][k] - v) / abs(v) for k, v in want["losses"].items())
+    check(loss_rel <= REMAT_LOSS_RTOL, f"{tag}: losses {got['losses']} vs {want['losses']} without remat")
+    check(sorted(got["grads"]) == sorted(want["grads"]), f"{tag}: the gradients' names differ")
+    norms = {n: float(g.norm()) for n, g in want["grads"].items()}
+    floor = 1e-4 * max(norms.values())
+    low, skipped = 1.0, 0
+    for n, g in want["grads"].items():
+        if norms[n] < floor:
+            skipped += 1
+            continue
+        cos = float(F.cosine_similarity(got["grads"][n].flatten().double(), g.flatten().double(), dim=0))
+        check(cos >= REMAT_GRAD_COS, f"{tag}: gradient {n} cosine {cos:.6f} with the step without remat")
+        low = min(low, cos)
+    return loss_rel, low, skipped
+
+
+def remat_phase(torch, work: str) -> dict:
+    """Phase 8c: activation remat (``runtime.remat``) on the card.
+    SegFormer-B5 self-training as phase 7 builds it (batch 6, 512x1024,
+    bf16, phase 6's seeded weights), on the first batch of phase 7's
+    stream (``remat_first_batch``): remat off, then each of REMAT_MODES,
+    each from a fresh trainer; step 1's losses and gradients held against
+    remat off (``compare_steps``), the launches per step (B3 twice and B4
+    once per block under every mode: the rerun reruns the attention), peak
+    memory, s/iter, and one step's device time (``remat_run``).  Then
+    DeepLab-v2/R101 consistency training as phase 8 builds it, on the first
+    batch of its stream, without remat and under 'full': the BatchNorm
+    running statistics after step 1 within REMAT_BUFFER_TOL of each
+    buffer's scale and ``num_batches_tracked`` equal (one update a step:
+    the rerun leaves them alone), the gradients by cosine (C6), no kernel
+    launched, peak memory and s/iter.  Each model's modes are timed a
+    second time in the reverse order, each from a fresh trainer, so that
+    no mode holds one place of the order.  Returns the B5 'blocks' step's
+    launches."""
+    from hiast_tpu_torch.models.deeplab_v2 import REMAT_MODES
+    from hiast_tpu_torch.selftrain.steps import StepCount
+
+    pth = os.path.join(work, "segformer_b5.pth")
+    b5_argv = train_argv(os.path.join(work, "remat_b5"), os.path.join(work, "round0", "pseudo_label", "gray_label"),
+                         os.path.join(work, "train.json"), os.path.join(work, "train"),
+                         os.path.join(work, "val.json"), os.path.join(work, "val"), pth, TRAIN_ITERS, TRAIN_ITERS)
+    r101_argv = hiast_argv(os.path.join(work, "remat_r101"),
+                           os.path.join(work, "hiast_round0", "pseudo_label", "gray_label"),
+                           os.path.join(work, "hiast.json"), os.path.join(work, "hiast"),
+                           os.path.join(work, "val.json"), os.path.join(work, "val"), TRAIN_ITERS)
+    started = time.perf_counter()
+    blocks = sum(B5_DEPTHS)
+    result = {}
+    for model, argv, modes in (("SegFormer-B5", b5_argv, REMAT_MODES), ("DeepLab-v2/R101", r101_argv, ("full",))):
+        batch = ref = None
+        for mode in (None, *modes):
+            t0 = time.perf_counter()
+            trainer = remat_trainer(argv, os.path.join(work, f"remat_{len(result)}"), mode)
+            if batch is None:  # the first batch of the stream, for every mode
+                batch = remat_first_batch(trainer)
+            build_s = time.perf_counter() - t0
+            tag = f"{model} remat {mode or 'off'}"
+            run = remat_run(torch, trainer, batch, tag)
+            del trainer
+            torch.cuda.empty_cache()
+            counts = run["counts"]
+            if model == "SegFormer-B5":
+                want = {"ias_hist": 0, "ias_select": 0, "sra_attention": blocks * (1 if mode is None else 2),
+                        "sra_attention_bwd": blocks}
+            else:
+                want = {"ias_hist": 0, "ias_select": 0, "sra_attention": 0, "sra_attention_bwd": 0}
+            check(counts == want, f"{tag}: launches per step {counts}, expected {want}")
+            check(all(np.isfinite(v) for v in run["losses"].values()), f"{tag}: losses {run['losses']}")
+            line = (f"{tag} [batch {TRAIN_B}, {TRAIN_H}x{TRAIN_W}, bf16]: {run['s_per_iter']:.4f} s/iter "
+                    f"({REMAT_STEADY} steps after 2), {run['device_ms']:.2f} ms of device kernels a step (idle "
+                    f"at least {run['idle']:.3f} of a profiled step), peak memory {run['peak_gb']:.3f} GB, "
+                    f"launches per step "
+                    f"B3 {counts['sra_attention']} B4 {counts['sra_attention_bwd']}, trainer built in "
+                    f"{build_s:.2f} s")
+            if ref is None:
+                ref = run
+            else:
+                loss_rel, low, skipped = compare_steps(run, ref, tag)
+                line += (f"; step 1 against remat off: losses within {loss_rel:.3g} relative, lowest gradient "
+                         f"cosine {low:.6f} ({skipped} tensors at rounding level left out)")
+                if model != "SegFormer-B5":
+                    worst = 0.0
+                    for n, b in ref["buffers"].items():
+                        if n.endswith("num_batches_tracked"):
+                            check(int(run["buffers"][n]) == int(b) == 1, f"{tag}: {n} {int(run['buffers'][n])}")
+                        elif n.endswith(("running_mean", "running_var")):
+                            err = float((run["buffers"][n] - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                            check(err <= REMAT_BUFFER_TOL, f"{tag}: {n} off the step without remat by {err:.3g}")
+                            worst = max(worst, err)
+                    line += f"; BatchNorm running statistics within {worst:.3g} of scale, one update a step"
+            print(line + f" (on {card_line()})")
+            result[(model, mode)] = run
+        second = {}
+        for mode in reversed((None, *modes)):
+            trainer = remat_trainer(argv, os.path.join(work, f"remat_{len(result)}_{mode}"), mode)
+            second[mode] = remat_timed(torch, trainer, batch, StepCount(), warm=2)
+            del trainer
+            torch.cuda.empty_cache()
+        off = (result[(model, None)]["s_per_iter"] + second[None]) / 2
+        print(f"{model} remat s/iter, first pass (off first) / second pass (reverse order, off last), and the "
+              f"mean of both over remat off's: " + "; ".join(
+                  f"{mode or 'off'} {result[(model, mode)]['s_per_iter']:.4f} / {second[mode]:.4f}, "
+                  f"{(result[(model, mode)]['s_per_iter'] + second[mode]) / 2 / off:.3f}" for mode in (None, *modes))
+              + f" (batch {TRAIN_B}, {TRAIN_H}x{TRAIN_W}, bf16, on {card_line()})")
+        del batch
+    print(f"remat phase: {time.perf_counter() - started:.1f} s")
+    return result[("SegFormer-B5", "blocks")]["counts"]
+
+
+EXPORT_TOL = 1e-4  # max |artifact - live| over max |live logit|: the same operations on the same card
+EXPORT_AGREE = 0.999  # argmax agreement of the artifact with the live eval forward
+EXPORT_REPS = 5  # timed calls at batch 2
+
+
+def export_run(torch, tag: str, pth: str, opts: list, out: str) -> dict:
+    """``cli.export_model`` at 768x1536 on the card from ``pth``, the program
+    loaded back, called at batch 1 and 2 and held against the live
+    ``make_eval_forward`` on the same images; returns, among its numbers,
+    the launches of the call at batch 2."""
+    from hiast_tpu_torch.cli import export_model
+    from hiast_tpu_torch.cli.common import build_cfg, standard_parser
+    from hiast_tpu_torch.models.segmentors import build_segmentor
+    from hiast_tpu_torch.selftrain.steps import make_eval_forward
+    from hiast_tpu_torch.utils.checkpoint import load_weights
+
+    cfg_argv = ["--config_file", os.path.join(REPO, "hiast_tpu_torch", "configs", "validate.yaml"),
+                "--validate_resume_from", pth, *opts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    export_model.main(["--device", "cuda", "--output", out, "--height", str(H), "--width", str(W), *cfg_argv])
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    program = export_model.load_exported(out).module()
+    load_s = time.perf_counter() - t0
+
+    cfg = build_cfg(standard_parser("chip_smoke export").parse_args(cfg_argv))
+    segmentor = build_segmentor(cfg)
+    segmentor.module.init_weights(torch.Generator().manual_seed(export_model.INIT_SEED))
+    load_weights(pth, segmentor.module)
+    segmentor.module.cuda().eval()
+    live = make_eval_forward(segmentor)
+    b3 = sum(B5_DEPTHS) if "SegFormer" in cfg.model.seg_model.type else 0
+    rng = np.random.default_rng(17)
+    images = {}
+    for b in (1, 2):
+        img = torch.from_numpy(rng.integers(0, 256, size=(b, H, W, 3), dtype=np.uint8)).cuda()
+        images[b] = img
+        reset_counts()
+        with torch.inference_mode():
+            got = program(img)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = live(img).permute(0, 2, 3, 1)
+        err = float((got - want).abs().max()) / float(want.abs().max())
+        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        check(tuple(got.shape) == (b, H, W, C) and got.dtype == torch.float32, f"{tag}: output {tuple(got.shape)}")
+        check(counts == {"ias_hist": 0, "ias_select": 0, "sra_attention": b3, "sra_attention_bwd": 0},
+              f"{tag}: launches of one call at batch {b}: {counts}")
+        check(err <= EXPORT_TOL and agree >= EXPORT_AGREE,
+              f"{tag} at batch {b}: {err:.4g} of the logits' scale off the live forward, argmax agreement {agree:.5f}")
+        print(f"{tag} artifact at batch {b}: max |diff| to the live eval forward {err:.4g} of the logits' scale "
+              f"(max |logit| {float(want.abs().max()):.3f}), argmax agreement {agree:.6f}, launches {counts}")
+
+    def rate(fn) -> float:
+        with torch.inference_mode():
+            for _ in range(2):
+                fn(images[2])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(EXPORT_REPS):
+                fn(images[2])
+            torch.cuda.synchronize()
+        return 2 * EXPORT_REPS / (time.perf_counter() - t0)
+
+    artifact_rate, live_rate = rate(program), rate(live)
+    size_mb = os.path.getsize(out) / 1e6
+    print(f"{tag} export [{H}x{W}, symbolic batch]: export {export_s:.2f} s, load {load_s:.2f} s, file "
+          f"{size_mb:.1f} MB; at batch 2 the artifact {artifact_rate:.3f} images/s, the live forward "
+          f"{live_rate:.3f} images/s (host clock, {EXPORT_REPS} calls after 2; on {card_line()})")
+    del program, segmentor, live
+    torch.cuda.empty_cache()
+    return {"counts": counts, "export_s": export_s, "load_s": load_s, "mb": size_mb,
+            "rates": (artifact_rate, live_rate)}
+
+
+def export_phase(torch, work: str, b5_pth: str, r101_pth: str) -> dict:
+    """Phase 8d: the serving export through ``cli.export_model`` on the card
+    with the shipped ``validate.yaml``: DeepLab-v2/R101 from the round
+    driver's seeded ``.pth`` and SegFormer-B5 from phase 6's seeded weights
+    (``export_run``).  Returns the B5 run's numbers."""
+    started = time.perf_counter()
+    export_run(torch, "DeepLab-v2/R101", r101_pth, R101_ARGV, os.path.join(work, "export", "deeplab_r101.pt2"))
+    b5 = export_run(torch, "SegFormer-B5", b5_pth, B5_ARGV, os.path.join(work, "export", "segformer_b5.pt2"))
+    print(f"export phase: {time.perf_counter() - started:.1f} s")
+    return b5
 
 
 ROUND_ITERS = 4  # a round's iterations in the round-driver phase (8,000 in sl_k.yaml)
@@ -2792,11 +3121,15 @@ def main(argv: list[str]) -> int:
 
     from hiast_tpu_torch.models.deeplab_v2 import DeepLabV2
 
-    pth = os.path.join(work, "deeplab_r101.pth")  # warmup student and teacher of the rounds
+    pth = os.path.join(work, "deeplab_r101.pth")  # warmup student and teacher of the rounds; exported in 8d
     model = DeepLabV2(num_classes=C)
     model.init_weights(torch.Generator().manual_seed(0))
     torch.save(model.state_dict(), pth)
     del model
+    remat_counts = remat_phase(torch, work)
+    export = export_phase(torch, work, os.path.join(work, "segformer_b5.pth"), pth)
+    print(f"serving export warm: SegFormer-B5 artifact {export['rates'][0]:.3f} images/s, live forward "
+          f"{export['rates'][1]:.3f} images/s (batch 2, {H}x{W}, on {card})")
     rounds = round_driver_phase(torch, work, (os.path.join(work, "hiast.json"), os.path.join(work, "hiast")),
                                 (os.path.join(work, "val.json"), os.path.join(work, "val")), pth)
     for k, rec in enumerate(rounds["records"], 1):
@@ -2864,6 +3197,9 @@ def main(argv: list[str]) -> int:
                     "bound_ms": c9["bound_ms"], "max_abs_err": c9["max_abs_err"]},
                 c7_max_abs_err=kernels_c7[name]["max_abs_err"],
             )
+        else:  # the B5 training run's launches; per step under 'blocks' remat; per call of the B5 artifact
+            rows[-1]["launches_by_path"] = {"training": counts[name], "remat_blocks_step": remat_counts[name],
+                                            "export_b5_call": export["counts"][name]}
     print(f"chip_smoke: every phase passed in {time.perf_counter() - started:.1f} s (the build included)")
     print(json.dumps({"kernels": rows}))
     print(f"card: {card}")

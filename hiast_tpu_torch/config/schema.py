@@ -221,10 +221,10 @@ def default_config() -> ConfigNode:
             # ==============================================================
             # TPU runtime (new; replaces gpu_num/port/apex_opt).  The port
             # takes its device from the CLI's --device flag and reads
-            # checkpoint.keep, precision.compute_dtype (the autocast dtype)
-            # and skip_nonfinite_updates; remat raises (ROADMAP.md item A8)
-            # and fused_attention is checked for its shape; the rest is the
-            # JAX package's only.
+            # checkpoint.keep, precision.compute_dtype (the autocast dtype),
+            # skip_nonfinite_updates and remat/remat_mode (models/remat.py,
+            # torch.utils.checkpoint), and fused_attention is checked for
+            # its shape; the rest is the JAX package's only.
             # ==============================================================
             "runtime": {
                 "mesh": {
@@ -240,16 +240,14 @@ def default_config() -> ConfigNode:
                     "param_dtype": "float32",  # master params
                 },
                 # rematerialize activations in the backward pass
-                # (jax.checkpoint): trades ~30% step FLOPs for activation
-                # memory — enables bigger batches / MiT-B5 at full res.
+                # (torch.utils.checkpoint): a train step reruns the trunk's
+                # forward, or each block's, to hold less activation memory.
                 "remat": False,
                 # how to remat when enabled: 'full' (whole trunk) | 'dots'
-                # (save matmul outputs, recompute elementwise) | 'blocks' /
-                # 'blocks_dots' (per-transformer-block — fall back to 'full'
-                # on non-transformer trunks).  Measured on MiT-B5 512x1024
-                # batch 8 (PERF.md round-4 ablation): 'blocks' has the
-                # lowest peak HBM (9.2 GB vs 17.0 full / 13.8 blocks_dots)
-                # AND the fastest remat step; pair with fused_attention.
+                # (keep the Linear products, rerun the rest) | 'blocks' /
+                # 'blocks_dots' (per SegFormer block; 'full' on trunks
+                # without blocks).  Peak memory and s/iter of each mode on
+                # the card: PERF.md (chip_smoke.py's remat phase).
                 "remat_mode": "full",
                 # JAX package only: route SegFormer stages through its
                 # Pallas attention kernel (one bool, or a 4-list of

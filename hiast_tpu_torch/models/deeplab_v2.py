@@ -110,15 +110,53 @@ class FCDiscriminator(nn.Module):
                 m.bias.copy_((torch.rand(m.bias.shape, generator=generator) * 2 - 1) * bound)
 
 
+REMAT_MODES = ("full", "dots", "blocks", "blocks_dots")
+
+
+def validate_remat_mode(mode: str) -> str:
+    """The one check of ``runtime.remat_mode`` (JAX ``validate_remat_mode``),
+    at every SegFormer build and wherever ``remat_plan`` runs."""
+    if mode not in REMAT_MODES:
+        raise ValueError(
+            f"unknown runtime.remat_mode {mode!r}; expected one of "
+            + ", ".join(repr(m) for m in REMAT_MODES)
+        )
+    return mode
+
+
+def remat_plan(cfg) -> tuple[str, bool]:
+    """Where ``runtime.remat`` reruns the trunk's activations, as the JAX
+    ``raw_apply`` dispatches: ``('none', False)`` with remat off;
+    ``('blocks', save_dots)`` for 'blocks'/'blocks_dots' on SegFormer (each
+    encoder block, inside the module); else ``('trunk', save_dots)`` around
+    the whole trunk (``segmentors.raw_apply``), where the block modes fall
+    back to 'full' on trunks without blocks.  ``save_dots``: keep the Linear
+    outputs ('dots', and 'blocks_dots' on SegFormer)."""
+    if not cfg.runtime.remat:
+        return "none", False
+    mode = validate_remat_mode(cfg.runtime.remat_mode)
+    if mode in ("blocks", "blocks_dots") and cfg.model.seg_model.type.startswith("SegFormer"):
+        return "blocks", mode == "blocks_dots"
+    return "trunk", mode == "dots"
+
+
 def build_seg_model(cfg) -> nn.Module:
     """Instantiate the configured segmentation trunk (registry-dispatched).
 
     Every trunk takes ``backbone_layers``; SegFormer ignores it, as the JAX
-    factory does.  For SegFormer ``runtime.fused_attention`` is checked for
-    the JAX package's shape (one bool or 4 per-stage flags) and selects
-    nothing: on the card every stage runs the SRA kernel."""
+    factory does.  For SegFormer ``runtime.remat_mode`` is validated on
+    every build, and the encoder reruns its blocks where ``remat_plan``
+    says so ('full' and 'dots' are applied around the whole trunk by
+    ``segmentors.raw_apply``);
+    ``runtime.fused_attention`` is checked for the JAX package's shape (one
+    bool or 4 per-stage flags) and selects nothing: on the card every stage
+    runs the SRA kernel."""
     seg = cfg.model.seg_model
+    kwargs = {}
     if seg.type.startswith("SegFormer"):
+        validate_remat_mode(cfg.runtime.remat_mode)  # with remat off too, as JAX does
+        scope, save_dots = remat_plan(cfg)
+        kwargs = {"remat_blocks": scope == "blocks", "save_dots": save_dots}
         fused = cfg.runtime.fused_attention
         if isinstance(fused, (list, tuple)) and len(fused) != 4:
             raise ValueError(
@@ -128,4 +166,5 @@ def build_seg_model(cfg) -> nn.Module:
         num_classes=cfg.dataset.num_classes,
         output_dim=seg.output_dim,
         backbone_layers=tuple(seg.backbone_layers),
+        **kwargs,
     )

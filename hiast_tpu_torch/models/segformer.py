@@ -18,6 +18,12 @@ projection, so under autograd its backward kernel writes the gradient of
 ``kv`` as one buffer.  In train mode the head's BatchNorm normalises with
 batch statistics and updates its running ones, as the JAX model does with
 ``train=True``.
+
+``remat_blocks`` (set by ``build_seg_model`` from ``runtime.remat`` and
+``runtime.remat_mode``, ``deeplab_v2.remat_plan``) reruns each ``MiTBlock``
+in the backward when the encoder trains under autograd (``models/remat.py``;
+``save_dots`` keeps the Linear outputs), so a B5 training step launches the
+attention kernel twice per block.  Parameter names do not change.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from hiast_tpu_torch.models.remat import checkpointed
 from hiast_tpu_torch.ops.cuda.attention import sra_attention_kv
 from hiast_tpu_torch.ops.resize import bilinear_resize
 from hiast_tpu_torch.registry import SEG_MODEL
@@ -131,10 +138,14 @@ class MiTBlock(nn.Module):
 
 
 class MixTransformer(nn.Module):
-    """The MiT encoder: four stages at strides 4, 8, 16, 32."""
+    """The MiT encoder: four stages at strides 4, 8, 16, 32.
+    ``remat_blocks`` reruns each block in the backward, keeping the Linear
+    outputs with ``save_dots`` (the module docstring)."""
 
-    def __init__(self, embed_dims: Sequence[int], depths: Sequence[int]):
+    def __init__(self, embed_dims: Sequence[int], depths: Sequence[int], remat_blocks: bool = False,
+                 save_dots: bool = False):
         super().__init__()
+        self.remat_blocks, self.save_dots = remat_blocks, save_dots
         in_ch = 3
         for s in range(4):
             patch, stride = (7, 4) if s == 0 else (3, 2)
@@ -147,11 +158,15 @@ class MixTransformer(nn.Module):
             in_ch = embed_dims[s]
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+        remat = self.remat_blocks and self.training and torch.is_grad_enabled()
         feats = []
         for s in range(1, 5):
             x, h, w = getattr(self, f"patch_embed{s}")(x)
             for block in getattr(self, f"block{s}"):
-                x = block(x, h, w)
+                if remat:
+                    x = checkpointed(block, x, h, w, save_dots=self.save_dots)
+                else:
+                    x = block(x, h, w)
             x = _grid(getattr(self, f"norm{s}")(x), h, w)
             feats.append(x)
         return feats
@@ -220,11 +235,12 @@ class SegFormer(nn.Module):
     """Full model with the seg_model interface ({'logits', 'backbone'});
     logits at stride 4."""
 
-    def __init__(self, num_classes: int = 19, variant: str = "B5"):
+    def __init__(self, num_classes: int = 19, variant: str = "B5", remat_blocks: bool = False,
+                 save_dots: bool = False):
         super().__init__()
         embed_dims, depths = VARIANTS[variant]
         self.variant = variant
-        self.backbone = MixTransformer(embed_dims, depths)
+        self.backbone = MixTransformer(embed_dims, depths, remat_blocks, save_dots)
         head_dim = 256 if variant == "B0" else 768
         self.decode_head = SegFormerHead(embed_dims, num_classes, head_dim)
 
@@ -256,10 +272,11 @@ class SegFormer(nn.Module):
 
 
 def _make_variant_factory(variant: str):
-    def factory(num_classes: int = 19, output_dim: int = 256, **_ignored) -> SegFormer:
+    def factory(num_classes: int = 19, output_dim: int = 256, remat_blocks: bool = False, save_dots: bool = False,
+                **_ignored) -> SegFormer:
         """``output_dim`` and ``backbone_layers`` are accepted for the
         seg_model interface and ignored, as in the JAX factory."""
-        return SegFormer(num_classes=num_classes, variant=variant)
+        return SegFormer(num_classes=num_classes, variant=variant, remat_blocks=remat_blocks, save_dots=save_dots)
 
     return factory
 

@@ -18,7 +18,8 @@ import copy
 import torch
 from torch import nn
 
-from hiast_tpu_torch.models.deeplab_v2 import FCDiscriminator, build_seg_model
+from hiast_tpu_torch.models.deeplab_v2 import FCDiscriminator, build_seg_model, remat_plan
+from hiast_tpu_torch.models.remat import checkpointed
 from hiast_tpu_torch.ops import losses as L
 from hiast_tpu_torch.ops.resize import bilinear_resize
 from hiast_tpu_torch.registry import LOSS, MODEL
@@ -41,13 +42,19 @@ class BaseSegmentor:
     def raw_apply(self, img: torch.Tensor, dtype: torch.dtype) -> dict:
         """The trunk's outputs on its own grid, computed under ``dtype``
         autocast (the JAX segmentor's compute dtype; float32 runs the trunk
-        as it is).  Master weights stay float32."""
-        if self.module.training and torch.is_grad_enabled() and self.cfg.runtime.remat:
-            raise NotImplementedError(
-                "runtime.remat (activation rematerialisation) is ROADMAP.md item A8: "
-                "not ported yet (torch.utils.checkpoint); train with runtime.remat False"
-            )
+        as it is).  Master weights stay float32.
+
+        With ``runtime.remat`` on, a trunk that trains under autograd
+        rematerialises its activations in the backward (``models/remat.py``),
+        where ``deeplab_v2.remat_plan`` says: around the whole trunk here,
+        or each SegFormer block inside the module.
+        Eval mode and no-grad forwards (the EMA teacher, the peers'
+        targets, generation, validation) never rerun."""
         with torch.autocast(img.device.type, dtype=dtype, enabled=dtype != torch.float32):
+            if self.module.training and torch.is_grad_enabled():
+                scope, save_dots = remat_plan(self.cfg)
+                if scope == "trunk":
+                    return checkpointed(self.module, img, save_dots=save_dots)
             return self.module(img)
 
     def forward(self, img: torch.Tensor, dtype: torch.dtype = torch.float32) -> dict:

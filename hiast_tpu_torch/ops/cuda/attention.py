@@ -17,7 +17,14 @@ on the CPU its forward and backward are ``sra_attention_plain`` and
 ``sra_attention_bwd_plain``; for CUDA tensors they launch the kernels or
 raise -- they never fall back.  Without autograd (inference, or inputs that
 need no grad) the forward launches with no residuals, as the serving path
-always has.  Each forward launch adds one to
+always has; ``sra_attention_kv`` then calls the registered op
+``torch.ops.hiast_tpu_torch.sra_attention_kv`` (``torch.library.custom_op``
+with a fake implementation for symbolic shapes), so ``torch.export`` keeps
+the kernel as one node of an exported program and eager serving and the
+program launch the same kernel.  The op's CUDA body is the forward kernel,
+its CPU body ``sra_attention_plain``; it raises where the kernel refuses a
+tensor.  Importing this module registers the op (``cli/export_model.py:
+load_exported`` does so before loading a program).  Each forward launch adds one to
 ``launch_counts['sra_attention']``, each backward launch (the dQ kernel, the
 dK/dV kernel and, where the query range is cut into chunks, the chunk
 reduction) one to ``launch_counts['sra_attention_bwd']``; nothing else
@@ -272,18 +279,38 @@ def _needs_grad(*xs: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
 
 
-def sra_attention_kv(q: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
-    """softmax(Q K^T / sqrt(D)) V per head with k, v the halves of kv
-    [B, N_kv, 2 H D]: [B, N_q, H, D] in q's dtype."""
-    if kv.dim() != 3 or kv.shape[-1] != 2 * q.shape[2] * q.shape[3]:
+def _check_kv(q: torch.Tensor, kv: torch.Tensor) -> None:
+    # shapes only: this runs on the symbolic tensors of a torch.export trace
+    if q.dim() != 4 or kv.dim() != 3 or kv.shape[-1] != 2 * q.shape[2] * q.shape[3]:
         raise ValueError(f"kv {tuple(kv.shape)} is not [B, N_kv, 2 H D] for q {tuple(q.shape)}")
+
+
+@torch.library.custom_op("hiast_tpu_torch::sra_attention_kv", mutates_args=())
+def sra_attention_kv_op(q: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
+    """The forward without autograd: the kernel on the card, the plain
+    version on the CPU (the module docstring)."""
+    _check_kv(q, kv)
     k, v = split_kv(kv, q.shape[2])
     _check(q, k, v)
-    if _needs_grad(q, kv):
-        return _SRAAttention.apply(q, kv)
     if q.device.type == "cpu":
         return sra_attention_plain(q, k, v)
     return _forward_cuda(q, k, v, with_stats=False)[0]
+
+
+@sra_attention_kv_op.register_fake
+def _sra_attention_kv_fake(q: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
+    _check_kv(q, kv)
+    return q.new_empty(q.shape)
+
+
+def sra_attention_kv(q: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
+    """softmax(Q K^T / sqrt(D)) V per head with k, v the halves of kv
+    [B, N_kv, 2 H D]: [B, N_q, H, D] in q's dtype."""
+    if _needs_grad(q, kv):
+        _check_kv(q, kv)
+        _check(q, *split_kv(kv, q.shape[2]))
+        return _SRAAttention.apply(q, kv)
+    return sra_attention_kv_op(q, kv)
 
 
 def sra_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -49,6 +49,15 @@ SHAPES = [
 ]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _threads():
+    """Two threads: the suite runs several pytest-xdist workers on one host."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _qkv(seed, b, nq, nkv, h, d):
     rng = np.random.default_rng(seed)
     return tuple(

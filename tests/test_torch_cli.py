@@ -27,6 +27,15 @@ from hiast_tpu_torch.data.png import write_png
 RNG = np.random.default_rng(21)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _threads():
+    """Two threads: the suite runs several pytest-xdist workers on one host."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture
 def fixture_root(tmp_path):
     img_dir = tmp_path / "city" / "images"

@@ -26,6 +26,15 @@ B, H, W = 4, 32, 64
 N_POOL = 8
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _threads():
+    """Two threads: the suite runs several pytest-xdist workers on one host."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _images(seed=0):
     return np.random.default_rng(seed).integers(0, 256, size=(B, H, W, 3)).astype(np.uint8)
 

@@ -13,7 +13,8 @@ tests/test_torch_train_step.py.
 
 Tolerances: the same float32 math in other operation orders: losses rtol
 1e-4; the head's (ASPP) gradients and the BatchNorm running statistics
-within 1e-3 of each tensor's largest magnitude.  Also a NaN step under
+within 1e-3 of each tensor's largest magnitude, also with whole-trunk
+remat ('full') on both sides.  Also a NaN step under
 ``runtime.skip_nonfinite_updates``.  ``ema_model.iter_update`` 2 over two
 steps (the EMA against JAX's, within 1e-3 of each tensor's largest
 magnitude) and the hard ('CE') teacher are in
@@ -193,8 +194,15 @@ def _check_losses(got, want):
         np.testing.assert_allclose(float(got[name]), value, rtol=1e-4, err_msg=name)
 
 
-def test_one_step_matches_jax():
-    check_one_step(_settings())
+@pytest.mark.parametrize("remat", [None, "full"], ids=["remat_off", "remat_full"])
+def test_one_step_matches_jax(remat):
+    """Also under whole-trunk remat, on both sides: the rerun of the trunk
+    in the backward leaves the BatchNorm buffers as JAX's rerun does, one
+    update a step."""
+    extra = {} if remat is None else {"runtime.remat": True, "runtime.remat_mode": remat}
+    module = check_one_step(_settings(**extra))
+    counts = [int(b) for n, b in module.named_buffers() if n.endswith("num_batches_tracked")]
+    assert counts and set(counts) == {1}
 
 
 def check_one_step(settings, init_key=INIT_KEY, by_cosine=("backbone.",), batch=None):
@@ -203,7 +211,7 @@ def check_one_step(settings, init_key=INIT_KEY, by_cosine=("backbone.",), batch=
     the EMA (the module docstring's tolerances).  The gradients of the
     parameters named with a prefix in ``by_cosine`` are held by cosine.
     ``batch`` defaults to ``_batch()``; one with a ``copy_paste_mask``
-    adds ``dcst_loss`` to the losses."""
+    adds ``dcst_loss`` to the losses.  Returns the port's student."""
     batch = _batch() if batch is None else batch
     init, [(state, want_losses)] = _jax_run(settings, [batch], init_key)
     segmentor, ema, _, step = _port(settings, init)
@@ -225,6 +233,7 @@ def check_one_step(settings, init_key=INIT_KEY, by_cosine=("backbone.",), batch=
     for name, p in ema.named_parameters():
         torch.testing.assert_close(p, 0.5 * (params[name].detach() + p0[name]))
         torch.testing.assert_close(want_ema[name], 0.5 * (jax_p1[name] + p0[name]))
+    return segmentor.module
 
 
 def check_update(module, init_params, new_params, new_batch_stats, by_cosine=("backbone.",)):

@@ -64,7 +64,7 @@ def test_the_port_has_files_to_check():
                    ("ops", "losses.py"), ("selftrain", "train_state.py"), ("selftrain", "trainers.py"),
                    ("utils", "recorder.py"), ("utils", "logging_utils.py"), ("cli", "train.py"),
                    ("ops", "color_aug.py"), ("data", "copy_paste.py"), ("data", "png.py"),
-                   ("data", "native_ops.py")):
+                   ("data", "native_ops.py"), ("cli", "export_model.py"), ("models", "remat.py")):
         assert os.path.join(REPO, "hiast_tpu_torch", *module) in files
 
 
@@ -81,7 +81,7 @@ def test_no_jax_or_reference_package_imports(path):
 def test_importing_the_cli_loads_no_jax():
     code = (
         "import sys; import hiast_tpu_torch.cli.generate_pseudo_labels, hiast_tpu_torch.cli.validate,"
-        " hiast_tpu_torch.cli.train,"
+        " hiast_tpu_torch.cli.train, hiast_tpu_torch.cli.export_model,"
         " hiast_tpu_torch.registry as r;"
         " r.populate();"
         " bad = sorted(m for m in sys.modules if m.split('.')[0] in"

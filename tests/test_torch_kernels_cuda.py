@@ -459,3 +459,113 @@ def test_color_aug_on_the_card_matches_the_cpu(cuda_device, kind):
     assert got.dtype == torch.bfloat16 and got.device.type == "cuda"
     diff = (got.float().cpu() - want.float()).abs()
     assert float(diff.mean()) < 1.5 and float(torch.quantile(diff.flatten(), 0.99)) < 16.0
+
+
+def test_registered_op_runs_the_kernel(cuda_device):
+    """``torch.ops.hiast_tpu_torch.sra_attention_kv``, the serving path's and
+    the exported program's entry: the forward kernel on the card, one launch,
+    against the plain version; it raises where the kernel does not take a
+    tensor, as the wrapper does."""
+    b, nq, nkv, h, d = 2, 1200, 288, 5, 64
+    q, _, _ = _qkv(10, b, nq, nkv, h, d, cuda_device)
+    kv = torch.randn(b, nkv, 2 * h * d, device=cuda_device).bfloat16()
+    A.reset_launch_counts()
+    got = torch.ops.hiast_tpu_torch.sra_attention_kv(q, kv)
+    want = A.sra_attention_kv_plain(q, kv)
+    torch.cuda.synchronize()
+    assert A.launch_counts == {"sra_attention": 1, "sra_attention_bwd": 0}
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert float((got.float() - want.float()).abs().max()) <= 1e-2
+    with pytest.raises(TypeError):
+        torch.ops.hiast_tpu_torch.sra_attention_kv(q.float(), kv.float())
+    with pytest.raises(ValueError):
+        torch.ops.hiast_tpu_torch.sra_attention_kv(q.transpose(1, 2), kv)
+
+
+def _b0_step(mode, cuda_device):
+    """One bf16 self-training step of a seeded SegFormer-B0 on the card,
+    with ``runtime.remat_mode`` ``mode`` (None: remat off): its losses,
+    gradients and launch counts."""
+    from hiast_tpu_torch.config import default_config
+    from hiast_tpu_torch.models.segmentors import build_segmentor
+    from hiast_tpu_torch.registry import populate
+    from hiast_tpu_torch.selftrain.steps import StepCount, make_self_training_step
+    from hiast_tpu_torch.selftrain.train_state import lr_schedule, make_optimizer
+
+    populate()
+    cfg = default_config()
+    cfg.model.type = "SelfTrainingSegmentor"
+    cfg.model.seg_model.type = "SegFormer_B0"
+    cfg.model.is_freeze_bn = False
+    cfg.runtime.remat = mode is not None
+    cfg.runtime.remat_mode = mode or "full"
+    segmentor = build_segmentor(cfg)
+    segmentor.module.init_weights(torch.Generator().manual_seed(0))
+    segmentor.module.to(cuda_device)
+    step = make_self_training_step(segmentor, make_optimizer(cfg, segmentor.module), lr_schedule(cfg))
+    rng = np.random.default_rng(11)
+    batch = {"t_img": torch.from_numpy(rng.integers(0, 256, size=(2, 256, 512, 3), dtype=np.uint8)),
+             "t_plbl": torch.from_numpy(rng.integers(0, 19, size=(2, 256, 512)).astype(np.uint8))}
+    A.reset_launch_counts()
+    losses = step({k: v.to(cuda_device) for k, v in batch.items()}, StepCount())
+    torch.cuda.synchronize()
+    grads = {n: p.grad.float().clone() for n, p in segmentor.module.named_parameters() if p.grad is not None}
+    return {k: float(v) for k, v in losses.items()}, grads, dict(A.launch_counts)
+
+
+def test_blocks_remat_step_equals_the_step_without(cuda_device):
+    """Under 'blocks' the backward reruns each of B0's 8 blocks, so the
+    forward kernel launches twice per block and the backward kernels once;
+    the rerun repeats the same kernels on the same inputs: losses within
+    1e-5 relative, each gradient's cosine with the step without remat at
+    least 0.9999 (some of cuDNN's backward kernels sum in no fixed order).
+    The biases whose gradient is zero in exact arithmetic are left out:
+    norm4's and the head's linear_c* biases add a per-channel constant that
+    the head's train-mode BatchNorm subtracts again, so both steps hold
+    rounding noise there (tests/test_torch_train_step.py)."""
+    want_losses, want_grads, want_counts = _b0_step(None, cuda_device)
+    losses, grads, counts = _b0_step("blocks", cuda_device)
+    assert want_counts == {"sra_attention": 8, "sra_attention_bwd": 8}
+    assert counts == {"sra_attention": 16, "sra_attention_bwd": 8}
+    for name, value in want_losses.items():
+        assert abs(losses[name] - value) <= 1e-5 * abs(value), name
+    assert sorted(grads) == sorted(want_grads)
+    zero = [n for n in want_grads if n == "backbone.norm4.bias"
+            or (n.startswith("decode_head.linear_c") and n.endswith(".bias"))]
+    assert len(zero) == 5
+    cosines = {name: float(torch.nn.functional.cosine_similarity(grads[name].flatten(), g.flatten(), dim=0))
+               for name, g in want_grads.items() if name not in zero}
+    low = {name: cos for name, cos in cosines.items() if cos < 0.9999}
+    assert not low, f"gradients off the step without remat: {low}"
+
+
+def test_b0_export_round_trip(cuda_device, tmp_path):
+    """A SegFormer-B0 program exported on the card, saved and loaded back:
+    at batch 1 and 2 it launches the forward kernel once per block and
+    equals the live eval forward within 2e-2 of the logits' scale (JAX's
+    export tolerance), with argmax agreement at least 0.999."""
+    from hiast_tpu_torch.cli import export_model
+    from hiast_tpu_torch.cli.common import build_cfg, standard_parser
+    from hiast_tpu_torch.models.segmentors import build_segmentor
+    from hiast_tpu_torch.selftrain.steps import make_eval_forward
+
+    h, w = 128, 256
+    opts = ["model.type", "SourceOnlySegmentor", "model.seg_model.type", "SegFormer_B0"]
+    path = str(tmp_path / "b0.pt2")
+    export_model.main(["--device", "cuda", "--output", path, "--height", str(h), "--width", str(w), *opts])
+    program = export_model.load_exported(path).module()
+    segmentor = build_segmentor(build_cfg(standard_parser("t").parse_args(opts)))
+    segmentor.module.init_weights(torch.Generator().manual_seed(export_model.INIT_SEED))
+    segmentor.module.to(cuda_device).eval()
+    eval_fwd = make_eval_forward(segmentor)
+    for b in (1, 2):
+        img = torch.from_numpy(np.random.default_rng(b).integers(0, 256, size=(b, h, w, 3), dtype=np.uint8))
+        img = img.to(cuda_device)
+        A.reset_launch_counts()
+        got = program(img)
+        torch.cuda.synchronize()
+        assert A.launch_counts["sra_attention"] == 8
+        want = eval_fwd(img).permute(0, 2, 3, 1)
+        assert got.shape == (b, h, w, 19) and got.dtype == torch.float32
+        assert float((got - want).abs().max()) <= 2e-2 * float(want.abs().max())
+        assert float((got.argmax(-1) == want.argmax(-1)).float().mean()) >= 0.999

@@ -26,6 +26,15 @@ from hiast_tpu_torch.models.deeplab_v2 import DeepLabV2, init_weights
 from hiast_tpu_torch.utils.checkpoint import load_weights
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _threads():
+    """Two threads: the suite runs several pytest-xdist workers on one host."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _jax_variables(layers, seed, model_cls=JaxDeepLabV2):
     """JAX DeepLab variables (v2 unless ``model_cls`` says otherwise) as
     numpy, with non-trivial BatchNorm."""

@@ -46,6 +46,15 @@ POLICIES = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _threads():
+    """Two threads: the suite runs several pytest-xdist workers on one host."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _configure(cfg, policy, save_dir, stats_source):
     cfg.pseudo_policy.type = policy
     cfg.pseudo_policy.save_dir = save_dir

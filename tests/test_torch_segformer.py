@@ -33,6 +33,15 @@ from hiast_tpu_torch.utils.checkpoint import load_weights
 H, W = 64, 128
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _threads():
+    """Two threads: the suite runs several pytest-xdist workers on one host."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def jax_b0():
     """(module, numpy variables, NHWC input) of a JAX B0 with non-trivial

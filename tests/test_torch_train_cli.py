@@ -8,8 +8,9 @@ entropy), float32, crop 48x96, batch 2.
 - resuming from it runs iterations 4 and 5 only, from the saved optimizer;
 - the generation CLI reads ``model_last.pth`` as its weights;
 - SIGTERM during a run checkpoints after the iteration and stops;
-- ``--device cuda`` without a card and ``runtime.remat`` raise (the
-  directional-consistency loss is held in tests/test_torch_dcst.py).
+- ``--device cuda`` without a card raises; with ``runtime.remat`` on it
+  trains (the directional-consistency loss is held in
+  tests/test_torch_dcst.py).
 
 And the HIAST round's trainer, ``ConsistencySelfTrainingTrainer``, on
 DeepLab-v2 with layers (1, 1, 1, 1): hiast_setting.yaml's overlay (EMA
@@ -145,12 +146,15 @@ def test_sigterm_checkpoints_and_stops(root, tmp_path):
     assert signal.getsignal(signal.SIGTERM) is not None
 
 
-@pytest.mark.parametrize("extra,error", [
-    (["runtime.remat", "True"], NotImplementedError),
-])
-def test_unported_runtime_options_raise(root, tmp_path, extra, error):
-    with pytest.raises(error):
-        train.main(_argv(root, tmp_path / "work", 1, *extra))
+def test_remat_trains_through_the_cli(root, tmp_path):
+    """With ``runtime.remat`` on, the trainer steps with each SegFormer block
+    rerun in the backward (tests/test_torch_remat.py holds every trainer's
+    step with remat against the step without)."""
+    argv = _argv(root, tmp_path / "work", 1, "runtime.remat", "True", "runtime.remat_mode", "blocks_dots")
+    trainer = train.main(argv)
+    encoder = trainer.segmentor.module.backbone
+    assert encoder.remat_blocks and encoder.save_dots
+    assert trainer.step == 1 and all(np.isfinite(v) for v in trainer.loss_log[0].values())
 
 
 def test_cuda_without_a_card_raises(root, tmp_path):

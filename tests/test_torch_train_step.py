@@ -10,7 +10,11 @@ step takes the same uint8 batch.  The port runs segformer_sl_1's settings
 1.0).  The JAX step runs them too, but with SGD at lr 1 and no weight decay,
 so that its one update is minus the gradient (times 10 for the head): the
 gradients are read off the JAX step's own update, from one compile.
-(Optimizer parity is tests/test_torch_train_state.py's.)
+(Optimizer parity is tests/test_torch_train_state.py's.)  The JAX step
+runs under 'blocks' remat (``jax.checkpoint`` around each MiT block, which
+reruns the same operations and changes no value), and one compile of it
+serves two port steps: without remat, and under 'blocks' (each block rerun
+by ``torch.utils.checkpoint``).
 
 Tolerances: both run the same float32 math in other operation orders (the
 port's attention backward is the JAX kernel's; XLA fuses, torch does not):
@@ -44,10 +48,20 @@ SETTINGS = {
     "train.weight_decay": 0.01,
     "train.lr_scheduler.type": "Poly",
 }
+BLOCKS = {"runtime.remat": True, "runtime.remat_mode": "blocks"}
 
 
-def _apply(cfg):
-    for key, value in SETTINGS.items():
+@pytest.fixture(scope="module", autouse=True)
+def _threads():
+    """Two threads: the suite runs several pytest-xdist workers on one host."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _apply(cfg, settings=SETTINGS):
+    for key, value in settings.items():
         node = cfg
         *path, leaf = key.split(".")
         for part in path:
@@ -57,12 +71,13 @@ def _apply(cfg):
 
 def _jax_reference(batch, monkeypatch):
     """(new variables, losses, initial variables, gradients) of the JAX
-    step; the initial variables are the helper's own, caught on their way
-    out of ``init_variables``."""
+    step, under 'blocks' remat (``BLOCKS``); the initial variables are the
+    helper's own, caught on their way out of ``init_variables``."""
     from hiast_tpu.models import segmentors as jax_segmentors
 
     def mutate(cfg):
         _apply(cfg)
+        _apply(cfg, BLOCKS)
         cfg.train.optimizer = "SGD"
         cfg.train.lr = 1.0
         cfg.train.weight_decay = 0.0
@@ -94,15 +109,35 @@ def _within(got: torch.Tensor, want, name: str, floor: float = 0.0, rel: float =
     np.testing.assert_allclose(got.detach().numpy(), want, rtol=0, atol=rel * scale, err_msg=name)
 
 
-def test_b0_step_matches_jax(monkeypatch):
+@pytest.fixture(scope="module")
+def jax_step():
+    """The batch and the JAX step, run once for both tests below."""
     batch = make_b0_batch()
-    new_vars, want_losses, init_vars, jgrads = _jax_reference(batch, monkeypatch)
+    with pytest.MonkeyPatch.context() as monkeypatch:
+        return batch, _jax_reference(batch, monkeypatch)
+
+
+def test_b0_step_matches_jax(jax_step):
+    check_b0_step(jax_step)
+
+
+def test_b0_blocks_step_matches_jax(jax_step):
+    """The port's step with each block rerun in the backward."""
+    check_b0_step(jax_step, BLOCKS)
+
+
+def check_b0_step(jax_step, extra=None):
+    """One B0 step of the port, with the settings ``extra`` on top of
+    ``SETTINGS``, against the JAX step (the module docstring's
+    tolerances)."""
+    batch, (new_vars, want_losses, init_vars, jgrads) = jax_step
 
     populate()
     cfg = default_config()
     cfg.model.type = "SelfTrainingSegmentor"
     cfg.model.seg_model.type = "SegFormer_B0"
     _apply(cfg)
+    _apply(cfg, extra or {})
     segmentor = build_segmentor(cfg)
     module = segmentor.module
     module.load_state_dict(flax_to_port_state_dict(init_vars), strict=True)
