@@ -248,6 +248,43 @@
       ias_select 6 at C = 9), 4 iterations of ``SelfTrainingTrainer`` on
       'OMS' 768x1024 crops, then ``cli.validate`` with the 9-class
       protocol; prints images/s and s/iter.
+   e. Data parallelism (``hiast_tpu_torch/parallel/mesh.py``;
+      ``data_parallel_phase``), cuDNN deterministic:
+      (a) phase 8's consistency run through ``cli.train`` (4 iterations, no
+      in-loop validation), IAS generation from the seeded R101 ``.pth``
+      over phase 3's 4 images at a global batch of 3, and ``cli.validate``
+      of that ``.pth`` on the 4 val images at batch 1, first without a
+      process group, then inside a one-rank NCCL group (``file://``
+      store): step 1's losses bit-equal (later steps within 1e-3: the
+      backward of the bilinear upsampling adds with atomics), the
+      generation's labels, thresholds and five statistics files
+      bit-equal, the IoU bit-equal; prints each run's s/iter over
+      iterations 3-4 (after the group's first collectives) and the gradient
+      all-reduce's device ms (CUDA events, the R101 gradients through one
+      flat buffer); then one consistency step of full-width R101 (float32,
+      TF32 off, CCA from a seeded generator) on a global batch of 2 at
+      512x1024 in that group.  Last, the same step in bf16 (the trainer's
+      dtype), timed (device ms, median of 3; memory resident and at peak):
+      without a group, in the group (losses bit-equal to the first), and in
+      the group with every BatchNorm made a ``SyncBatchNorm2d`` (losses
+      within 1e-3 relative of ``nn.BatchNorm2d``'s).
+      (b) two spawned ranks (``--data-parallel-rank``) in a gloo group,
+      both on cuda:0 (NCCL refuses two ranks on one card; gloo reduces
+      through the host): the same step, one sample a rank, with the synced
+      BatchNorm, against (a)'s: losses within 1e-4 relative, each
+      gradient's cosine at least 0.9999 and its norm within 1e-3, both
+      ranks' weights equal; the generation at global batch 3 (rank 1's
+      share of the last batch is all padding, so B1 and B2 launch there
+      at nvalid 0): ias_hist 2 and ias_select 2 a rank, labels equal to
+      (a)'s (or on at least 99.99% of pixels with thresholds within
+      1/num_bins, where the two batch sizes take other cuDNN algorithms;
+      the line says which held) and then every statistics file equal;
+      the validation at a global batch of 2 (one image a rank, as (a)'s
+      batch 1) with the IoU equal.
+      (c) B1 and B2 on [2, 19, 768, 1536] peaked logits at nvalid 0, half
+      a sample and a sample and 7 pixels against their plain versions;
+      at 0 an empty histogram, every label 255, zero counts and sums; the
+      sums float64, the kernel's unrounded fixed-point total.
 14. Prints one JSON line of the kernels, the card line again, and last
    ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` are those of
    the path it serves in this run: ``ias_hist``/``ias_select`` from the
@@ -255,7 +292,8 @@
    peaked input), ``sra_attention`` and
    ``sra_attention_bwd`` from the SegFormer training run.  The IAS rows
    also carry ``launches_by_path`` (the round driver, the DeepLab-v3+
-   round, the mutual round, the handoff round, the Oxford generation) and
+   round, the mutual round, the handoff round, the Oxford generation, and
+   each rank of phase 13e's world-2 generation) and
    ``c9``, the times
    at [2, 9, 768, 1280].  For
    ``sra_attention`` the
@@ -434,10 +472,10 @@ def read_counts() -> dict:
     return {**select_kernel.launch_counts, **attention.launch_counts}
 
 
-def device_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of fn() in ms.  A spin kernel queued before each
-    run keeps the card busy while the host enqueues fn's launches, so the
-    events time the device work only."""
+def device_ms(torch, fn, reps: int = 20, warmup: int = 3, spin: int = 5_000_000) -> float:
+    """Median device time of fn() in ms.  A spin kernel of ``spin`` cycles
+    queued before each run keeps the card busy while the host enqueues fn's
+    launches, so the events time the device work only."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -445,7 +483,7 @@ def device_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(5_000_000)
+        torch.cuda._sleep(spin)
         start.record()
         fn()
         end.record()
@@ -568,8 +606,7 @@ def kernel_phase(torch, c: int = C, hw_full: tuple = (H, W), hw_low: tuple = (LO
             if nvalid == hw:
                 check(int(cnt[1:].sum()) == 0 and bool((lab[1:] == 255).all()),
                       f"ias_select {kind} {label}: the cut sample was selected")
-            # the plain version's float32 index_add_ drifts over ~1e6 terms a
-            # class; hold both to its confidences summed in float64
+            # hold both to the plain version's confidences summed in float64
             sel_p = lab_p != 255
             exact = torch.zeros(c, dtype=torch.float64, device=dev).index_add_(
                 0, pred[sel_p], maxprob[sel_p].double())
@@ -580,7 +617,7 @@ def kernel_phase(torch, c: int = C, hw_full: tuple = (H, W), hw_low: tuple = (LO
                   f"ias_select {kind} {label}: sums off by {err} (relative {rel})")
             results["ias_select"]["max_abs_err"] = max(results["ias_select"]["max_abs_err"], err)
             print(f"ias_select [{kind}, {tag}, {label}] nvalid={nvalid} labels differing={n_diff} count diff={cnt_diff} "
-                  f"sums against float64: max err {err:g}, relative {rel:.3g} (plain float32 sums {plain_rel:.3g}); "
+                  f"sums against float64: max err {err:g}, relative {rel:.3g} (plain sums {plain_rel:.3g}); "
                   f"a second call gives the same bits")
 
         if not timed:
@@ -593,7 +630,7 @@ def kernel_phase(torch, c: int = C, hw_full: tuple = (H, W), hw_low: tuple = (LO
         low_bound, _ = bound_ms(low_n * c * 4 + c * NUM_BINS * 4, low_n * c * 4.0)
         sel_ms = device_ms(torch, lambda: ias_select(full, thr_main, n))
         sel_plain = device_ms(torch, lambda: ias_select_plain(full, thr_main, n))
-        sel_bound, _ = bound_ms(n * c * 4 + c * 4 + n + B * c * 4 + c * 4, n * c * 4.0)
+        sel_bound, _ = bound_ms(n * c * 4 + c * 4 + n + B * c * 4 + c * 8, n * c * 4.0)
         print(f"ias_hist   [{kind}, {tag}, full] {hist_ms:.4f} ms, plain {hist_plain:.4f} ms, bound {hist_bound:.4f} ms "
               f"(bytes; {hist_bound / hist_ms:.3f} of it)")
         print(f"ias_hist   [{kind}, C={c}, {low_h}x{low_w}, low]  {low_ms:.4f} ms, bound {low_bound:.4f} ms")
@@ -1620,17 +1657,20 @@ def remat_run(torch, trainer, batch: dict, tag: str) -> dict:
     return out
 
 
-def compare_steps(got: dict, want: dict, tag: str) -> tuple[float, float, int]:
-    """Step 1 with remat against without: losses within REMAT_LOSS_RTOL,
-    each gradient's cosine at least REMAT_GRAD_COS (tensors whose gradient
-    is at rounding level, norm below 1e-4 of the largest, left out and
-    counted, as in ``check_b5_backward``).  Returns the largest relative
-    loss difference, the lowest cosine and the tensors left out."""
+def compare_steps(got: dict, want: dict, tag: str, loss_rtol: float = REMAT_LOSS_RTOL,
+                  grad_cos: float = REMAT_GRAD_COS, norm_rtol: float | None = None) -> tuple[float, float, int]:
+    """Step 1 with remat against without (or a step against another):
+    losses within ``loss_rtol``, each gradient's cosine at least
+    ``grad_cos`` and, given ``norm_rtol``, its norm within that (tensors
+    whose gradient is at rounding level, norm below 1e-4 of the largest,
+    left out and counted, as in ``check_b5_backward``).  Returns the
+    largest relative loss difference, the lowest cosine and the tensors
+    left out."""
     import torch.nn.functional as F
 
     check(sorted(got["losses"]) == sorted(want["losses"]), f"{tag}: losses {got['losses']} vs {want['losses']}")
     loss_rel = max(abs(got["losses"][k] - v) / abs(v) for k, v in want["losses"].items())
-    check(loss_rel <= REMAT_LOSS_RTOL, f"{tag}: losses {got['losses']} vs {want['losses']} without remat")
+    check(loss_rel <= loss_rtol, f"{tag}: losses {got['losses']} vs {want['losses']}")
     check(sorted(got["grads"]) == sorted(want["grads"]), f"{tag}: the gradients' names differ")
     norms = {n: float(g.norm()) for n, g in want["grads"].items()}
     floor = 1e-4 * max(norms.values())
@@ -1640,7 +1680,9 @@ def compare_steps(got: dict, want: dict, tag: str) -> tuple[float, float, int]:
             skipped += 1
             continue
         cos = float(F.cosine_similarity(got["grads"][n].flatten().double(), g.flatten().double(), dim=0))
-        check(cos >= REMAT_GRAD_COS, f"{tag}: gradient {n} cosine {cos:.6f} with the step without remat")
+        check(cos >= grad_cos, f"{tag}: gradient {n} cosine {cos:.6f}")
+        ratio = float(got["grads"][n].norm()) / norms[n]
+        check(norm_rtol is None or abs(ratio - 1) <= norm_rtol, f"{tag}: gradient {n} norm ratio {ratio:.6f}")
         low = min(low, cos)
     return loss_rel, low, skipped
 
@@ -2840,12 +2882,21 @@ def segformer_phase(torch, work: str, profile: bool) -> tuple[dict, float, float
     return counts, N_IMAGES / loop, N_IMAGES / val_loop
 
 
+def device_kernel_ms(events) -> tuple[float, float]:
+    """(ms of CUDA kernels, ms of copies) in a profiler's ``key_averages()``."""
+    from torch.autograd import DeviceType
+
+    # a user annotation's device span (the optimizer step's) covers kernels counted on their own
+    on_device = [e for e in events if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    copies = sum(e.self_device_time_total for e in on_device if e.key.startswith("Memcpy")) / 1e3
+    return sum(e.self_device_time_total for e in on_device) / 1e3 - copies, copies
+
+
 def profile_run(torch, tag: str, run, table: bool = True) -> float:
     """Where one warm run's device time goes: device time by CUDA kernel
     (torch.profiler; the table only with ``table``) and the device's idle
     share of the batch loop, which it returns.  ``run()`` returns the
     seconds of its batch loop."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as prof
 
@@ -2855,10 +2906,7 @@ def profile_run(torch, tag: str, run, table: bool = True) -> float:
     print(f"profile [{tag}]")
     if table:
         print(events.table(sort_by="self_cuda_time_total", row_limit=25))
-    # a user annotation's device span (the optimizer step's) covers kernels counted on their own
-    on_device = [e for e in events if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-    copies = sum(e.self_device_time_total for e in on_device if e.key.startswith("Memcpy")) / 1e3
-    kernels = sum(e.self_device_time_total for e in on_device) / 1e3 - copies
+    kernels, copies = device_kernel_ms(events)
     # the profiler spans all of run() (for a CLI: model build, weight
     # upload); the kernels inside the loop take at most all of it
     idle = 1 - kernels / 1e3 / loop
@@ -3051,12 +3099,361 @@ def host_costs(image_path: str) -> None:
           f"encode one label PNG of that size {encode * 1e3:.2f} ms")
 
 
+# ---------------------------------------------------------------------------
+# Phase 13e: data parallelism (parallel/mesh.py)
+# ---------------------------------------------------------------------------
+DP_ITERS = 4  # iterations of the world-1 consistency runs; s/iter is read over iterations 3-4
+DP_B = 2  # the world-2 consistency step's global batch: one sample a rank
+DP_GEN_B = 3  # the world-2 generation's global batch: rank 1's share of the last batch is padding
+DP_LOSS_RTOL = 1e-4  # the world-2 step's losses against world 1's (float32; convolutions at other batches)
+DP_GRAD_COS = 0.9999  # each gradient's cosine with world 1's
+DP_NORM_RTOL = 1e-3  # and its norm
+DP_TRAIN_RTOL = 1e-3  # (a)'s losses after step 1, where the backward's atomics round apart
+DP_LABEL_AGREEMENT = 0.9999  # label share that must agree where the two sizes pick other cuDNN algorithms
+DP_SYNC_BN_RTOL = 1e-3  # the bf16 step with SyncBatchNorm2d at world 1 against nn.BatchNorm2d's losses
+DP_STEP_SPIN = 500_000_000  # cycles of spin before each timed step, longer than the host takes to enqueue it
+
+
+def dp_dir(work: str, *parts: str) -> str:
+    return os.path.join(work, "data_parallel", *parts)
+
+
+def dp_generation_argv(work: str, pth: str, save_dir: str) -> list:
+    """IAS generation over phase 3's 4 images from the seeded R101 at a
+    global batch of DP_GEN_B."""
+    return [
+        "--device", "cuda", "--pseudo_resume_from", pth, "--pseudo_save_dir", save_dir,
+        "model.type", "SelfTrainingSegmentor", *R101_ARGV, "dataset.num_classes", str(C),
+        "dataset.target.type", "Cityscapes", "dataset.target.json_path", os.path.join(work, "target.json"),
+        "dataset.target.image_dir", os.path.join(work, "city"),
+        "pseudo_policy.type", "IAS", "pseudo_policy.batch_size", str(DP_GEN_B),
+        "pseudo_policy.resize_size", f"[{H}, {W}]", "pseudo_policy.num_hist_bins", str(NUM_BINS),
+        "pseudo_policy.stats_source", "full",
+    ]
+
+
+def dp_validation_argv(work: str, pth: str, batch: int) -> list:
+    return [
+        "--device", "cuda", "--validate_resume_from", pth, "model.type", "SourceOnlySegmentor", *R101_ARGV,
+        "dataset.num_classes", str(C), "dataset.val.type", "Cityscapes",
+        "dataset.val.json_path", os.path.join(work, "val.json"), "dataset.val.image_dir", os.path.join(work, "val"),
+        "validate.resize_sizes", f"[[{H}, {W}]]", "validate.is_flip", "False", "validate.batch_size", str(batch),
+    ]
+
+
+def dp_generate_and_validate(torch, work: str, pth: str, tag: str, val_batch: int) -> dict:
+    """The generation of ``dp_generation_argv`` into ``tag``'s dir (its
+    thresholds, class-mean probabilities and launches) and one validation
+    of the seeded R101 at ``val_batch`` (its IoU)."""
+    from hiast_tpu_torch.cli import generate_pseudo_labels, validate
+
+    save_dir = dp_dir(work, tag, "pseudo_label", "gray_label")
+    torch.cuda.synchronize()
+    reset_counts()
+    gen = generate_pseudo_labels.main(dp_generation_argv(work, pth, save_dir))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    result = validate.main(dp_validation_argv(work, pth, val_batch))
+    return {"save_dir": save_dir, "thresholds": gen.class_threshold, "cmp": gen.class_mean_probs,
+            "counts": counts, "iou": np.asarray(result["iou"]), "gen_s": gen.run_seconds,
+            "val_s": result["seconds"]}
+
+
+def dp_consistency_step(torch, work: str, dtype=None, sync_bn: bool = False, timed: bool = False) -> dict:
+    """One consistency step of full-width R101 (phase 8's settings, the
+    seeded initialisation, CCA drawn from a seeded generator) on a global
+    batch of DP_B at 512x1024, this rank on its share, the trunk in float32
+    (TF32 off) unless ``dtype`` says otherwise: under bf16 the two world
+    sizes' convolutions, at other batch sizes, round apart by more than a
+    wrong reduction would show.  ``sync_bn`` makes every BatchNorm a
+    ``SyncBatchNorm2d`` whatever the world size.  Returns the global losses,
+    every gradient (on rank 0) and each parameter's sum after the step;
+    ``timed``, also the median device ms of 3 more steps (CUDA events) and
+    the memory allocated before them and at their peak, and the ms of CUDA
+    kernels a step over 2 profiled steps (torch.profiler)."""
+    import copy
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from hiast_tpu_torch.cli.common import build_cfg, standard_parser
+    from hiast_tpu_torch.models.norm import SyncBatchNorm2d, convert_synced
+    from hiast_tpu_torch.models.segmentors import build_segmentor
+    from hiast_tpu_torch.parallel import mesh
+    from hiast_tpu_torch.selftrain.steps import StepCount, make_consistency_step
+    from hiast_tpu_torch.selftrain.train_state import lr_schedule, make_optimizer
+
+    unused = dp_dir(work, "unused")
+    cfg = build_cfg(standard_parser("chip_smoke data-parallel").parse_args(
+        hiast_argv(unused, unused, unused, unused, unused, unused, DP_ITERS)))
+    segmentor = build_segmentor(cfg)
+    segmentor.module.init_weights(torch.Generator().manual_seed(cfg.train.random_seed))
+    convert_synced(segmentor.module)
+    if sync_bn:  # at world size 1 too, where convert_synced leaves the model as it is
+        for m in segmentor.module.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.__class__ = SyncBatchNorm2d
+    segmentor.module.to("cuda")
+    ema = copy.deepcopy(segmentor.module).requires_grad_(False).eval()
+    optimizer = make_optimizer(cfg, segmentor.module)
+    step = make_consistency_step(segmentor, ema, optimizer, lr_schedule(cfg), dtype or torch.float32, strong_aug="CCA",
+                                 generator=torch.Generator("cuda").manual_seed(cfg.train.random_seed))
+    rng = np.random.default_rng(21)
+    img = rng.integers(0, 256, size=(DP_B, TRAIN_H, TRAIN_W, 3)).astype(np.uint8)
+    lbl = rng.integers(0, C, size=(DP_B, TRAIN_H, TRAIN_W)).astype(np.uint8)
+    lbl[rng.random(lbl.shape) < 0.25] = 255
+    share = mesh.local_share(DP_B)
+    batch = {"t_img": torch.from_numpy(img[share]).cuda(), "t_plbl": torch.from_numpy(lbl[share]).cuda()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = step(batch, StepCount())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    params = list(segmentor.module.named_parameters())
+    out = {"losses": {k: float(v) for k, v in losses.items()}, "seconds": seconds,
+           "sums": torch.stack([p.detach().double().sum() for _, p in params]).cpu()}
+    if mesh.is_main():
+        out["grads"] = {n: p.grad.float().cpu() for n, p in params if p.grad is not None}
+    if timed:
+        count = StepCount()
+        step(batch, count)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out["resident_gb"] = torch.cuda.memory_allocated() / 1e9
+        out["step_ms"] = device_ms(torch, lambda: step(batch, count), reps=3, warmup=0, spin=DP_STEP_SPIN)
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                step(batch, count)
+            torch.cuda.synchronize()
+        out["kernel_ms"] = device_kernel_ms(prof.key_averages())[0] / 2
+        if sync_bn:  # where the synced BatchNorm's time goes
+            print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=10))
+    return out
+
+
+def dp_artifacts(save_dir: str) -> dict:
+    """Every file the generation wrote: the label PNGs decoded, the
+    statistics as bytes."""
+    from hiast_tpu_torch.data.png import decode_png_file
+
+    stats = os.path.dirname(save_dir)
+    out = {n: decode_png_file(os.path.join(save_dir, n)) for n in sorted(os.listdir(save_dir))}
+    for name in ("class_threshold.npy", "statics_class.npy", "class_mean_probabilities.npy",
+                 "sample_class_stats.json", "samples_with_class.json"):
+        with open(os.path.join(stats, name), "rb") as f:
+            out[name] = f.read()
+    return out
+
+
+def dp_worker(argv: list) -> int:
+    """One rank of the world-2 run (``chip_smoke.py --data-parallel-rank R
+    STORE WORK PTH``): joins a gloo group through the ``file://`` store on
+    cuda:0 beside the other rank, runs ``dp_consistency_step`` and
+    ``dp_generate_and_validate`` and saves the results."""
+    import torch
+
+    rank, store, work, pth = argv
+    if not torch.cuda.is_available():
+        return 2
+    os.environ.update({"RANK": rank, "WORLD_SIZE": "2", "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "2"})
+    from hiast_tpu_torch.parallel import mesh
+
+    mesh.init("cuda", backend="gloo", init_method=f"file://{store}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    out = {"step": dp_consistency_step(torch, work)}
+    out.update(dp_generate_and_validate(torch, work, pth, "gloo_world_2", val_batch=DP_B))
+    torch.save(out, dp_dir(work, f"rank{rank}.pt"))
+    mesh.barrier()
+    mesh.destroy()
+    return 0
+
+
+def dp_share_kernels(torch) -> dict:
+    """B1 and B2 on a rank's share of a ragged last batch, [2, 19, 768,
+    1536] peaked logits: nothing valid, half of the first sample, and the
+    first sample and 7 pixels; each against its plain version (the module
+    docstring's tolerances), the sums against the plain version's float64
+    sums and as the kernel's unrounded fixed-point total (units of 2^-26)."""
+    from hiast_tpu_torch.ops.cuda.select_kernel import ias_hist, ias_hist_plain, ias_select, ias_select_plain
+
+    x = torch.from_numpy(peaked_logits((B, C, H, W), 41)).cuda()
+    thr = torch.full((C,), 0.99, device="cuda")
+    errs = {}
+    for nvalid in (0, H * W // 2, H * W + 7):
+        hist, want_hist = ias_hist(x, nvalid, NUM_BINS), ias_hist_plain(x, nvalid, NUM_BINS)
+        labels, counts, sums, _ = ias_select(x, thr, nvalid)
+        w_labels, w_counts, w_sums, _ = ias_select_plain(x, thr, nvalid)
+        torch.cuda.synchronize()
+        tol = max(2, int(1e-4 * max(nvalid, 1)))
+        check(torch.equal(hist.sum(1), want_hist.sum(1)) and float(hist.sum()) == nvalid,
+              f"ias_hist at nvalid {nvalid}: row sums")
+        check(float((hist - want_hist).abs().sum()) <= tol, f"ias_hist at nvalid {nvalid}: bins")
+        differ = int((labels != w_labels).sum())
+        check(differ <= tol and int((counts - w_counts).abs().sum()) <= differ, f"ias_select at nvalid {nvalid}")
+        check(sums.dtype == torch.float64 and torch.equal(sums, torch.round(sums * 2.0**26) / 2.0**26),
+              f"ias_select at nvalid {nvalid}: the sums are not the unrounded fixed-point total")
+        err = float((sums - w_sums).abs().max())
+        check(err <= 1e-5 * float(w_sums.abs().max()) + differ, f"ias_select at nvalid {nvalid}: sums off by {err}")
+        if nvalid == 0:
+            check(float(hist.abs().sum()) == 0 and bool((labels == 255).all()) and int(counts.abs().sum()) == 0
+                  and float(sums.abs().sum()) == 0, "the kernels at nvalid 0 found valid pixels")
+        errs[nvalid] = {"hist_l1": float((hist - want_hist).abs().sum()), "labels_differ": differ, "sums_err": err}
+    print(f"data-parallel shares of [{B}, {C}, {H}, {W}]: ias_hist and ias_select against their plain versions "
+          f"at nvalid 0, {H * W // 2} and {H * W + 7}: {errs}")
+    return errs
+
+
+def data_parallel_phase(torch, work: str, pth: str, card: str) -> dict:
+    """Phase 13e (the module docstring): (a) world 1 over NCCL against no
+    process group, (b) world 2 over gloo on this card against (a)'s world-1
+    runs, (c) the kernels at a rank's share.  Returns the world-2 ranks'
+    launches."""
+    import torch.distributed as dist
+
+    from hiast_tpu_torch.cli import train as cli_train
+    from hiast_tpu_torch.parallel import mesh
+
+    started = time.perf_counter()
+    os.makedirs(dp_dir(work), exist_ok=True)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # two runs of one configuration take one algorithm
+    paths = (os.path.join(work, "hiast.json"), os.path.join(work, "hiast"), os.path.join(work, "val.json"),
+             os.path.join(work, "val"))
+    pseudo_dir = os.path.join(work, "hiast_round0", "pseudo_label", "gray_label")
+    runs = {}
+    try:
+        for tag in ("no_group", "nccl_world_1"):
+            if tag == "nccl_world_1":
+                dist.init_process_group("nccl", init_method=f"file://{dp_dir(work, 'store_w1')}", world_size=1,
+                                        rank=0, device_id=torch.device("cuda", 0))
+            argv = hiast_argv(dp_dir(work, tag, "train"), pseudo_dir, *paths, DP_ITERS) + ["train.iter_val", "1000"]
+            trainer = cli_train.main(argv)
+            torch.cuda.synchronize()
+            t = trainer.iter_times
+            run = {"losses": trainer.loss_log, "s_per_iter": (t[-1] - t[1]) / (len(t) - 2), "iter2_s": t[1] - t[0],
+                   "supply_step_s": supply_and_step(torch, trainer)}
+            run.update(dp_generate_and_validate(torch, work, pth, tag, val_batch=1))
+            if tag == "nccl_world_1":
+                check(mesh.initialized() and mesh.world_size() == 1, "the NCCL group did not outlive the CLIs")
+                grads = [p.grad for p in trainer.segmentor.module.parameters() if p.grad is not None]
+                run["all_reduce_ms"] = device_ms(torch, lambda: mesh.all_reduce_sum(grads))
+                run["grad_mb"] = sum(g.numel() * g.element_size() for g in grads) / 1e6
+                del grads
+                run["step"] = dp_consistency_step(torch, work)
+            del trainer
+            torch.cuda.empty_cache()
+            # the trainer's step in its own dtype, timed; in the group also with SyncBatchNorm2d
+            run["step_bf16"] = dp_consistency_step(torch, work, torch.bfloat16, timed=True)
+            if tag == "nccl_world_1":
+                run["step_bf16_sync"] = dp_consistency_step(torch, work, torch.bfloat16, sync_bn=True, timed=True)
+                dist.destroy_process_group()
+            runs[tag] = run
+            torch.cuda.empty_cache()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        torch.backends.cudnn.deterministic = deterministic
+    a, w1 = runs["no_group"], runs["nccl_world_1"]
+    first_equal = a["losses"][0] == w1["losses"][0]
+    all_equal = a["losses"] == w1["losses"]
+    worst = max(abs(w1["losses"][i][k] - v) / abs(v) for i, step in enumerate(a["losses"]) for k, v in step.items())
+    check(first_equal, f"world 1 over NCCL: step 1's losses {w1['losses'][0]} differ from {a['losses'][0]}")
+    check(worst <= DP_TRAIN_RTOL, f"world 1 over NCCL: losses off by {worst:.3g} relative")
+    got, want = dp_artifacts(w1["save_dir"]), dp_artifacts(a["save_dir"])
+    check(got.keys() == want.keys() and all(np.array_equal(got[k], want[k]) if isinstance(want[k], np.ndarray)
+                                            else got[k] == want[k] for k in want),
+          "world 1 over NCCL: the generation's labels or statistics differ from the run without a group")
+    check(np.array_equal(w1["iou"], a["iou"]), f"world 1 over NCCL: IoU {w1['iou']} vs {a['iou']}")
+    check(w1["step_bf16"]["losses"] == a["step_bf16"]["losses"],
+          f"world 1 over NCCL: the timed bf16 step's losses {w1['step_bf16']['losses']} vs {a['step_bf16']['losses']}")
+    plain, synced = w1["step_bf16"], w1["step_bf16_sync"]
+    sync_rel = max(abs(synced["losses"][k] - v) / abs(v) for k, v in plain["losses"].items())
+    check(sync_rel <= DP_SYNC_BN_RTOL, f"SyncBatchNorm2d at world 1: bf16 losses off by {sync_rel:.3g} relative")
+    print(f"data-parallel (a) world 1 over NCCL against no process group: step 1's losses bit-equal; "
+          f"{'all ' + str(DP_ITERS) + ' iterations bit-equal' if all_equal else f'iterations 2-{DP_ITERS} within {worst:.3g} relative (the backward of the bilinear upsampling adds with atomics)'}; "
+          f"generation labels, thresholds and artifacts bit-equal; IoU bit-equal; gradient all-reduce "
+          f"{w1['all_reduce_ms']:.4f} ms a step "
+          f"({w1['grad_mb']:.1f} MB of R101 gradients, NCCL, one rank; batch {TRAIN_B}, {TRAIN_H}x{TRAIN_W}, on {card})")
+    print(f"data-parallel (a) consistency run through cli.train, iterations 3-{DP_ITERS}: {a['s_per_iter']:.4f} s/iter "
+          f"without a process group, {w1['s_per_iter']:.4f} in a one-rank NCCL group (iteration 2: "
+          f"{a['iter2_s']:.4f} and {w1['iter2_s']:.4f} s); after each run, the trainer's batch supply alone "
+          f"{a['supply_step_s'][0]:.4f} and {w1['supply_step_s'][0]:.4f} s a batch, its step alone "
+          f"{a['supply_step_s'][1]:.4f} and {w1['supply_step_s'][1]:.4f} s (host clock; batch {TRAIN_B}, "
+          f"{TRAIN_H}x{TRAIN_W}, on {card})")
+    print(f"data-parallel (a) one bf16 consistency step (R101, batch {DP_B}, {TRAIN_H}x{TRAIN_W}; CUDA events, median "
+          f"of 3 after 2; CUDA kernels a step over 2 profiled steps): nn.BatchNorm2d without a group "
+          f"{a['step_bf16']['step_ms']:.3f} ms, kernels {a['step_bf16']['kernel_ms']:.3f} ms, peak "
+          f"{a['step_bf16']['peak_gb']:.3f} GB; in the one-rank NCCL group {plain['step_ms']:.3f} ms, kernels "
+          f"{plain['kernel_ms']:.3f} ms, peak {plain['peak_gb']:.3f} GB (losses bit-equal); SyncBatchNorm2d in "
+          f"that group {synced['step_ms']:.3f} ms, kernels {synced['kernel_ms']:.3f} ms, peak "
+          f"{synced['peak_gb']:.3f} GB, losses within {sync_rel:.3g} relative; resident before the steps "
+          f"{plain['resident_gb']:.3f} and {synced['resident_gb']:.3f} GB (on {card})")
+
+    # (b) world 2 over gloo, both ranks on this card
+    store = dp_dir(work, "store_w2")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--data-parallel-rank", str(r), store,
+                               work, pth], cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"data-parallel rank {r} exited with {p.returncode}:\n{out[-6000:]}")
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(dp_dir(work, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+    for r in ranks:
+        check(torch.equal(r["step"]["sums"], ranks[0]["step"]["sums"]), "the two ranks' weights differ after the step")
+        check(r["step"]["losses"] == ranks[0]["step"]["losses"], "the two ranks report other losses")
+    loss_rel, low, skipped = compare_steps(ranks[0]["step"], w1["step"], "world 2 over gloo",
+                                           loss_rtol=DP_LOSS_RTOL, grad_cos=DP_GRAD_COS, norm_rtol=DP_NORM_RTOL)
+    expected = {"ias_hist": -(-N_IMAGES // DP_GEN_B), "ias_select": -(-N_IMAGES // DP_GEN_B), "sra_attention": 0,
+                "sra_attention_bwd": 0}
+    for r, rec in enumerate(ranks):
+        check(rec["counts"] == expected, f"world 2 rank {r}: launches {rec['counts']}, expected {expected}")
+    got = dp_artifacts(ranks[0]["save_dir"])
+    check(got.keys() == want.keys(), f"world 2: files {sorted(got)} vs {sorted(want)}")
+    pngs = [k for k in want if k.endswith(".png")]
+    differ = sum(int((got[k] != want[k]).sum()) for k in pngs)
+    pixels = sum(want[k].size for k in pngs)
+    if differ == 0:
+        check(all(got[k] == want[k] for k in want if k not in pngs),
+              "world 2: equal labels but other statistics files")
+        verdict = "labels, thresholds, counts and every artifact bit-equal"
+    else:
+        check(1 - differ / pixels >= DP_LABEL_AGREEMENT, f"world 2: labels differ on {differ} of {pixels} pixels")
+        thr_diff = float(np.abs(ranks[0]["thresholds"] - a["thresholds"]).max())
+        check(thr_diff <= 1.0 / NUM_BINS, f"world 2: thresholds off by {thr_diff}")
+        verdict = (f"labels differ on {differ} of {pixels} pixels (batches of 2 a rank against 3: other cuDNN "
+                   f"algorithms), thresholds within {thr_diff:.3g}")
+    for r in ranks:
+        check(np.array_equal(r["iou"], w1["iou"]), f"world 2: IoU {r['iou']} vs world 1's {w1['iou']}")
+    print(f"data-parallel (b) world 2 over gloo, both ranks on this card, against world 1: consistency step "
+          f"(R101, global batch {DP_B}, {TRAIN_H}x{TRAIN_W}) losses within {loss_rel:.3g} relative, gradient "
+          f"cosines at least {low:.6f} ({skipped} rounding-level tensors left out), the ranks' weights equal; "
+          f"step {ranks[0]['step']['seconds']:.3f} s at world 2 (gloo through the host), "
+          f"{w1['step']['seconds']:.3f} s at world 1; IAS generation ({N_IMAGES} images, global batch {DP_GEN_B}, "
+          f"rank 1's last share all padding): {verdict}; launches per rank {[r['counts'] for r in ranks]}; "
+          f"validation IoU exact; {wall:.1f} s for both ranks (on {card})")
+    share_errs = dp_share_kernels(torch)
+    print(f"data-parallel phase: {time.perf_counter() - started:.1f} s")
+    return {"counts": [r["counts"] for r in ranks], "share_errs": share_errs}
+
+
 def main(argv: list[str]) -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch; nothing was run", file=sys.stderr)
         return 2
+    if argv[:1] == ["--data-parallel-rank"]:
+        return dp_worker(argv[1:])
     profile = "--profile" in argv
     started = time.perf_counter()
     card = card_line()
@@ -3171,6 +3568,7 @@ def main(argv: list[str]) -> int:
     print(f"oxford round warm: generation {oxford['gen_rate']:.3f} images/s (batch {B}, {OX_H}x{OX_W}, 9 classes), "
           f"training {oxford['s_per_iter']:.4f} s/iter (batch {TRAIN_B}, 768x1024), peak memory "
           f"{oxford['peak_gb']:.3f} GB (on {card})")
+    data_parallel = data_parallel_phase(torch, work, pth, card)
 
     rows = []
     sources = {
@@ -3192,7 +3590,9 @@ def main(argv: list[str]) -> int:
             rows[-1].update(
                 launches_by_path={"round_driver": counts[name], "deeplab_v3plus": v3plus["counts"][name],
                                   "mutual": mutual["counts"][name], "handoff": handoff["counts"][name],
-                                  "oxford": oxford["counts"][name]},
+                                  "oxford": oxford["counts"][name],
+                                  "data_parallel_rank0": data_parallel["counts"][0][name],
+                                  "data_parallel_rank1": data_parallel["counts"][1][name]},
                 c9={"shape": [B, OX_C, OX_H, OX_W], "ms": c9["ms"], "plain_ms": c9["plain_ms"],
                     "bound_ms": c9["bound_ms"], "max_abs_err": c9["max_abs_err"]},
                 c7_max_abs_err=kernels_c7[name]["max_abs_err"],

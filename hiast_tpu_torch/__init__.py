@@ -9,5 +9,7 @@ self-training and HIAST consistency training (``cli.train``) and
 validation (``cli.validate``), on DeepLab-v2/ResNet-101 and SegFormer
 (MiT-B0..B5), with the two selection kernels (``ops/cuda/select_kernel.py``)
 and the SRA attention forward and backward (``ops/cuda/attention.py``) in
-CUDA; configs in ``configs/``, read by ``config/yaml_subset.py``.
+CUDA; configs in ``configs/``, read by ``config/yaml_subset.py``.  Under
+``torchrun`` every entry point runs data-parallel, one process a GPU
+(``parallel/mesh.py``).
 """

@@ -10,7 +10,8 @@ code/generate_pseudo_labels.py; the JAX package's
 ``pseudo_policy.type`` picks IAS, CT, NT or CBST (``pseudo/generator.py``);
 ``pseudo_policy.ms_sizes`` / ``is_flip`` fuse scaled and mirrored views.
 Runs on the card by default; ``--device cpu`` runs the plain PyTorch
-versions of the kernels (tests).
+versions of the kernels (tests).  Under ``torchrun --nproc_per_node=N``
+each rank takes its share of every batch (``pseudo/generator.py``).
 """
 from __future__ import annotations
 
@@ -19,12 +20,13 @@ import warnings
 import numpy as np
 import torch
 
-from hiast_tpu_torch.cli.common import build_cfg, resolve_device, standard_parser
+from hiast_tpu_torch.cli.common import build_cfg, standard_parser
 from hiast_tpu_torch.data.datasets import build_dataset
 from hiast_tpu_torch.data.native_ops import host_ops_for
 from hiast_tpu_torch.data.pipeline import BatchIterator, prefetched
 from hiast_tpu_torch.models.segmentors import build_segmentor
 from hiast_tpu_torch.ops.resize import bilinear_resize
+from hiast_tpu_torch.parallel import mesh
 from hiast_tpu_torch.registry import PSEUDO_POLICY
 from hiast_tpu_torch.selftrain.steps import normalize_image
 from hiast_tpu_torch.utils.checkpoint import load_weights
@@ -84,7 +86,12 @@ def make_forward(cfg, segmentor, device: torch.device):
 def main(argv=None):
     args = standard_parser("hiast_tpu_torch pseudo-label generator").parse_args(argv)
     cfg = build_cfg(args)
-    device = resolve_device(args.device)
+    with mesh.session(args.device) as device:
+        return _generate(cfg, device)
+
+
+def _generate(cfg, device: torch.device):
+    mesh.check_mesh(cfg)
     # the trunk runs in bf16 under autocast; everything in fp32 around it
     # (resize, policy math) is meant at full fp32 precision
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -114,6 +121,7 @@ def main(argv=None):
                     shuffle=True,
                     seed=cfg.train.random_seed,
                     drop_last=False,
+                    share=mesh.share(),
                 )
             ),
             depth=2,

@@ -19,7 +19,14 @@ clears and regenerates a partial one (``pseudo/generator.py:prepare_dirs``).
 The configs default to the port's copies in ``hiast_tpu_torch/configs/``
 (``sl_<k>.yaml`` with ``hiast_setting.yaml``), read by the port's own YAML
 reader.  Runs on the card by default; ``--device cpu`` runs the plain
-PyTorch versions of the kernels (tests).
+PyTorch versions of the kernels (tests).  Data-parallel on N GPUs:
+
+    torchrun --nproc_per_node=N -m hiast_tpu_torch.cli.run_rounds ...
+
+with N a divisor of the rounds' ``train.batch_size`` (1, 2, 3 or 6 for the
+shipped 6).  Rank 0 takes the skip and resume decisions and every rank
+follows them; generation and training run on every rank, with a barrier
+between them.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ import os
 
 from hiast_tpu_torch.cli import generate_pseudo_labels, train
 from hiast_tpu_torch.config import load_config
+from hiast_tpu_torch.parallel import mesh
 from hiast_tpu_torch.utils.checkpoint import load_step
 
 
@@ -54,6 +62,11 @@ def main(argv=None):
     )
     args = p.parse_args(argv)
 
+    with mesh.session(args.device):
+        _run(args)
+
+
+def _run(args):
     setting = args.setting_file or os.path.join(args.configs_dir, "hiast_setting.yaml")
     pseudo_ckpt = args.warmup_pseudo_ckpt
     student_ckpt = args.warmup_ckpt
@@ -68,7 +81,7 @@ def main(argv=None):
         # save and the SIGTERM checkpoint both write it): at total_iter or
         # later the round is done; below it, training continues from the full
         # state (optimizer, EMA, schedule position); no step: a fresh round
-        done_step = load_step(ckpt_dir, "model_last")
+        done_step = mesh.broadcast_object(load_step(ckpt_dir, "model_last") if mesh.is_main() else None)
         total_iter = _round_total_iter(cfg_file, setting)
         if done_step is not None and done_step >= total_iter:
             print(f"%% round {k}: training already complete "
@@ -82,6 +95,7 @@ def main(argv=None):
                 "--pseudo_save_dir", pseudo_dir,
                 "--device", args.device,
             ])
+            mesh.barrier()
             if done_step is not None:
                 print(f"%% round {k}: resuming interrupted training from "
                       f"step {done_step} (full state)")

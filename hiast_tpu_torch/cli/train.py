@@ -7,22 +7,26 @@ package's ``hiast_tpu/cli/train.py``).
 
 Runs on the card by default and raises without one; ``--device cpu`` runs
 the plain PyTorch versions of the kernels (tests).  ``main`` returns the
-trainer.
+trainer.  Data-parallel on N GPUs, each rank a share of the global
+``train.batch_size`` (``parallel/mesh.py``):
+
+    torchrun --nproc_per_node=N -m hiast_tpu_torch.cli.train ...
 """
 from __future__ import annotations
 
-from hiast_tpu_torch.cli.common import build_cfg, resolve_device, standard_parser
+from hiast_tpu_torch.cli.common import build_cfg, standard_parser
+from hiast_tpu_torch.parallel import mesh
 from hiast_tpu_torch.registry import TRAINER
 
 
 def main(argv=None):
     args = standard_parser("hiast_tpu_torch trainer").parse_args(argv)
     cfg = build_cfg(args)
-    device = resolve_device(args.device)
     if not cfg.trainer:
         raise ValueError("no trainer configured: set trainer (e.g. SelfTrainingTrainer)")
-    trainer = TRAINER[cfg.trainer](cfg, device=device)
-    trainer.run()
+    with mesh.session(args.device) as device:
+        trainer = TRAINER[cfg.trainer](cfg, device=device)
+        trainer.run()
     return trainer
 
 

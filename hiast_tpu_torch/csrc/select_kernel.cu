@@ -54,8 +54,10 @@
 // float2.  Each class group of a warp sums its confidences in fixed point
 // (units of 2^-26, one __reduce_add_sync); each block writes its [C] counts
 // and sums plainly into scratch, and ias_select_reduce, a second small
-// launch, adds them up and rounds each sum once to float.  Integer sums are
-// the same in any order: two calls give the same bits.
+// launch, adds them up and writes each sum as a double, exactly (below 2^53
+// units): sums of several calls, or of several ranks' shares, round once,
+// where their caller rounds.  Integer sums are the same in any order: two
+// calls give the same bits.
 //
 // Launchers read device attributes and set function attributes once per
 // device, run on the caller's stream, never synchronise, allocate nothing,
@@ -382,11 +384,11 @@ ias_hist_reduce(const unsigned int* __restrict__ scratch, int clusters, int cs_l
 
 // One warp per output: counts[b, c] = sum over x of part_cnt[b, x, c]
 // (outputs 0 .. B*C-1), sums[c] = 2^-26 * sum over b, x of part_sum[b, x, c]
-// (outputs B*C .. B*C+C-1), rounded once to float.  Integer sums: the same
-// bits on every call.
+// (outputs B*C .. B*C+C-1), exact as a double.  Integer sums: the same bits
+// on every call.
 __global__ void __launch_bounds__(kThreads)
 ias_select_reduce(const int* __restrict__ part_cnt, const unsigned long long* __restrict__ part_sum,
-                  int B, int nx, int C, int* __restrict__ counts, float* __restrict__ sums) {
+                  int B, int nx, int C, int* __restrict__ counts, double* __restrict__ sums) {
   const long long out = (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (out >= static_cast<long long>(B) * C + C) return;  // whole warps leave
@@ -403,7 +405,7 @@ ias_select_reduce(const int* __restrict__ part_cnt, const unsigned long long* __
     for (long long i = lane; i < static_cast<long long>(B) * nx; i += 32) s += part_sum[i * C + c];
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(kFullWarp, s, off);
-    if (lane == 0) sums[c] = static_cast<float>(static_cast<double>(s) * (1.0 / kSumScale));
+    if (lane == 0) sums[c] = static_cast<double>(s) * (1.0 / kSumScale);
   }
 }
 
@@ -557,7 +559,7 @@ cudaError_t select_blocks(int B, long long hw_size, int* nx) {
 template <int MAXC, int VEC>
 cudaError_t launch_select(const float* logits, const float* thresholds, int B, int C,
                           long long hw_size, long long nvalid, uint8_t* labels, float* maxprob,
-                          int* counts, float* sums, int* part_cnt, unsigned long long* part_sum, long long parts,
+                          int* counts, double* sums, int* part_cnt, unsigned long long* part_sum, long long parts,
                           cudaStream_t stream) {
   int nx = 0;
   cudaError_t e = select_blocks<MAXC, VEC>(B, hw_size, &nx);
@@ -640,7 +642,7 @@ long long ias_select_parts(const void* logits, int B, int C, long long hw_size) 
 
 // logits: float32 [B, C, hw_size]; thresholds: float32 [C]; labels: uint8
 // [B, hw_size]; maxprob: float32 [B, hw_size] or null; counts: int32 [B, C]
-// and sums: float32 [C], both written whole; part_cnt: int32 and part_sum:
+// and sums: float64 [C], both written whole; part_cnt: int32 and part_sum:
 // uint64 [parts, C] scratch, parts from ias_select_parts.  The label and
 // maxprob vector stores need the alignment torch gives a new tensor.
 int ias_select(const void* logits, const void* thresholds, int B, int C, long long hw_size,
@@ -655,7 +657,7 @@ int ias_select(const void* logits, const void* thresholds, int B, int C, long lo
   uint8_t* l = static_cast<uint8_t*>(labels);
   float* mp = static_cast<float*>(maxprob);
   int* n = static_cast<int*>(counts);
-  float* sm = static_cast<float*>(sums);
+  double* sm = static_cast<double*>(sums);
   int* pc = static_cast<int*>(part_cnt);
   unsigned long long* ps = static_cast<unsigned long long*>(part_sum);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

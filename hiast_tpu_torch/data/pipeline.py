@@ -4,10 +4,12 @@ The port's copy of ``hiast_tpu/data/pipeline.py``, kept line for line so the
 numpy shuffle order, and with it the order in which IAS sees the images and
 the trainer its batches, is the JAX package's exactly.  ONE host pipeline
 produces the global batch; a daemon thread decodes the next batches while
-the card runs the current one.  One departure: ``infinite_batches`` raises
+the card runs the current one.  Two departures: ``infinite_batches`` raises
 when the dataset holds fewer samples than a batch, where the JAX stream
 would spin forever without yielding (every epoch drops its only, partial
-batch).
+batch); and ``BatchIterator``'s ``share`` gives a data-parallel rank its
+rows of each global batch (``parallel/mesh.py``), where the JAX package
+shards the global batch on the device.
 """
 from __future__ import annotations
 
@@ -70,11 +72,17 @@ class BatchIterator:
     the reference's DataLoader worker processes).  Pass ``pool`` to reuse an
     existing executor (infinite_batches shares ONE pool across epochs
     instead of churning a fresh pool per epoch).
+
+    ``share`` (rank r, world size N) yields rank r's contiguous share of
+    each global batch instead: the batch padded to a multiple of N and cut
+    into N equal parts, as JAX shards it over the data axis.  The pad rows
+    are not fetched, so a share holds 0 to ``local_size`` samples; an empty
+    one keeps the arrays' trailing shapes with 0 rows, for ``pad_batch``.
     """
 
     def __init__(
         self, dataset, batch_size, shuffle=True, seed=0, epoch=0, drop_last=True,
-        num_workers: int = 0, pool=None,
+        num_workers: int = 0, pool=None, share: tuple[int, int] | None = None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -84,6 +92,12 @@ class BatchIterator:
         self.drop_last = drop_last
         self.num_workers = num_workers
         self.pool = pool
+        self.share = share
+
+    @property
+    def local_size(self) -> int:
+        """Rows of a (padded) batch on this rank."""
+        return self.batch_size if self.share is None else -(-self.batch_size // self.share[1])
 
     def __len__(self):
         n = len(self.dataset)
@@ -105,14 +119,22 @@ class BatchIterator:
 
             pool = ThreadPoolExecutor(max_workers=self.num_workers)
             own_pool = True
+        fetch = (lambda idxs: list(pool.map(self._fetch, idxs))) if pool is not None else (
+            lambda idxs: [self._fetch(i) for i in idxs])
+        template = None
         try:
             for start in range(0, limit, self.batch_size):
                 idxs = [int(i) for i in order[start : start + self.batch_size]]
-                if pool is not None:
-                    samples = list(pool.map(self._fetch, idxs))
-                else:
-                    samples = [self._fetch(i) for i in idxs]
-                yield collate(samples)
+                if self.share is not None:
+                    r = self.share[0]
+                    idxs = idxs[r * self.local_size : (r + 1) * self.local_size]
+                    if not idxs:  # all of this rank's rows are padding
+                        template = template or collate([self._fetch(int(order[start]))])
+                        yield {k: v[:0] if isinstance(v, np.ndarray) else [] for k, v in template.items()}
+                        continue
+                batch = collate(fetch(idxs))
+                template = batch
+                yield batch
         finally:
             if own_pool:
                 pool.shutdown(wait=True)

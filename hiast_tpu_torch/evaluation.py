@@ -5,8 +5,11 @@ code/workflows/validator.py:34-115, code/workflows/trainer/base_trainer.py:
 160-186): per batch, resize (align_corners=True) -> forward under bf16
 autocast -> upsample the logits -> softmax [-> + the flipped pass] -> resize
 to the label size -> sum over scales -> argmax -> per-class intersection and
-union.  The host only adds up two [C] vectors per batch.  One device: the
-JAX package's mesh sharding has no counterpart here yet.
+union.  The host only adds up two [C] vectors per batch.  Under a process
+group (``parallel/mesh.py``) each rank validates its contiguous share of
+every global batch (``BatchIterator``'s ``share``), the IoU areas are
+summed over the ranks, and every rank returns the same IoU; the rank that
+holds a sample writes its colour mask.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from hiast_tpu_torch.data.pipeline import pad_batch
 from hiast_tpu_torch.data.png import encode_png
 from hiast_tpu_torch.ops.metrics import intersection_and_union, iou_from_areas, synthia_mious
 from hiast_tpu_torch.ops.resize import bilinear_resize
+from hiast_tpu_torch.parallel import mesh
 from hiast_tpu_torch.selftrain.steps import normalize_image
 
 # Class palettes for colorized prediction export (reference validator.py:57-70)
@@ -97,15 +101,16 @@ def make_ms_flip_step(
     return step
 
 
-def run_validation(step_fn: Callable, data_iter: Iterable, device: torch.device, with_pred: bool = False):
+def run_validation(step_fn: Callable, data_iter: Iterable, device: torch.device, with_pred: bool = False,
+                   target: int | None = None):
     """Accumulate (iou, miou) over a batch iterator.
 
-    Partial tail batches are padded to the first batch's size with all-255
-    labels (``pad_batch``): the pad samples add nothing to intersection or
-    union, and every batch has one shape."""
+    Partial tail batches are padded to ``target`` samples (default: the
+    first batch's size) with all-255 labels (``pad_batch``): the pad
+    samples add nothing to intersection or union, and every batch has one
+    shape.  The areas are summed over the ranks of a process group."""
     inter_sum = union_sum = None
     preds = []
-    target = None
     for batch in data_iter:
         if target is None:
             target = batch["images"].shape[0]
@@ -118,6 +123,7 @@ def run_validation(step_fn: Callable, data_iter: Iterable, device: torch.device,
             preds.append((pred[0][:n].cpu().numpy(), batch["image_paths"][:n]))
         inter_sum = inter if inter_sum is None else inter_sum + inter
         union_sum = union if union_sum is None else union_sum + union
+    mesh.all_reduce_sum([inter_sum, union_sum])
     iou = iou_from_areas(inter_sum.cpu().numpy(), union_sum.cpu().numpy())
     miou = float(np.mean(iou))
     return (iou, miou, preds) if with_pred else (iou, miou)
@@ -143,14 +149,14 @@ class Validator:
             if os.listdir(self.color_dir):
                 raise RuntimeError(f"validate.color_mask_dir_path {self.color_dir!r} is not empty")
 
-    def run(self, data_iter: Iterable) -> dict:
+    def run(self, data_iter: Iterable, target: int | None = None) -> dict:
         """{'iou', 'miou'} (+ 'miou_16', 'miou_13' for SYNTHIA sources).  The
         predictions come back to the host only for colour export.
         ``run_seconds`` is the host time of the batch loop, which ends in
-        the fetch of the summed areas."""
+        the fetch of the summed areas.  ``target``: ``run_validation``'s."""
         t0 = time.perf_counter()
         iou, miou, *preds = run_validation(
-            self.step, data_iter, self.device, with_pred=bool(self.color_dir)
+            self.step, data_iter, self.device, with_pred=bool(self.color_dir), target=target
         )
         self.run_seconds = time.perf_counter() - t0
         if self.color_dir:

@@ -68,6 +68,11 @@ class ColorAugDraws:
     alpha: torch.Tensor | None = None
     beta: torch.Tensor | None = None
 
+    def rows(self, share: slice) -> "ColorAugDraws":
+        """The draws of the samples in ``share`` (a data-parallel rank's)."""
+        return ColorAugDraws(self.kind, *(None if t is None else t[share] for t in
+                                          (self.gates, self.jitter, self.ksize, self.alpha, self.beta)))
+
 
 def _uniform(shape, lo: float, hi: float, generator: torch.Generator) -> torch.Tensor:
     u = torch.rand(shape, generator=generator, device=generator.device, dtype=torch.float32)

@@ -12,7 +12,10 @@ tensor it launches the kernel or raises — it never falls back (a refused
 cluster launch raises too).  Each wrapper call that launches adds one to
 ``launch_counts[<kernel>]``, the small reduce launch that follows each
 kernel included; nothing else touches the counts.  Two ``ias_select`` calls on the same
-inputs give the same bits: its sums run in a fixed order.
+inputs give the same bits: its sums run in a fixed order.  ``ias_select``
+returns its confidence sums in float64, unrounded (on the card the
+kernel's exact fixed-point total), so that the sums of several ranks'
+shares round once, where the caller rounds.
 """
 from __future__ import annotations
 
@@ -132,10 +135,8 @@ def ias_hist(logits: torch.Tensor, nvalid: int, num_bins: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # ias_select
 # ---------------------------------------------------------------------------
-def ias_select_plain(
-    logits: torch.Tensor, thresholds: torch.Tensor, nvalid: int, with_maxprob: bool = False
-):
-    """(labels uint8 [B,H,W], counts int32 [B,C], sums float32 [C], maxprob).
+def ias_select_plain(logits: torch.Tensor, thresholds: torch.Tensor, nvalid: int, with_maxprob: bool = False):
+    """(labels uint8 [B,H,W], counts int32 [B,C], sums float64 [C], maxprob).
 
     A pixel is selected when it is valid and its confidence reaches its
     class's threshold; its label is the class, else 255.  ``counts`` are the
@@ -155,14 +156,12 @@ def ias_select_plain(
     return (
         labels,
         counts.reshape(b, c).to(torch.int32),
-        sums.float(),
+        sums,
         maxprob if with_maxprob else None,
     )
 
 
-def ias_select(
-    logits: torch.Tensor, thresholds: torch.Tensor, nvalid: int, with_maxprob: bool = False
-):
+def ias_select(logits: torch.Tensor, thresholds: torch.Tensor, nvalid: int, with_maxprob: bool = False):
     """Thresholded pseudo-label selection; see ``ias_select_plain``."""
     _check_logits(logits)
     b, c, h, w = logits.shape
@@ -176,7 +175,7 @@ def ias_select(
     dev = logits.device
     labels = torch.empty((b, h, w), dtype=torch.uint8, device=dev)
     counts = torch.empty((b, c), dtype=torch.int32, device=dev)
-    sums = torch.empty((c,), dtype=torch.float32, device=dev)
+    sums = torch.empty((c,), dtype=torch.float64, device=dev)
     maxprob = torch.empty((b, h, w), dtype=torch.float32, device=dev) if with_maxprob else None
     parts = _scratch_size("ias_select_parts", logits)
     part_cnt = torch.empty((parts, c), dtype=torch.int32, device=dev)

@@ -13,10 +13,21 @@ be restricted by ``refer_labels`` to the 'confident' region (refer !=
 ignore), the 'ignored' region or 'all', and is then normalised by the number
 of NONZERO entries, the reference's ``loss.sum() / (loss != 0).sum()``.
 Reductions run in float32 whatever the logits' dtype.
+
+Data parallelism (``parallel/mesh.py``): the JAX package takes every loss
+as a mean over the global batch.  Inside ``over_ranks`` each loss is this
+rank's numerator over the global batch's denominator: a count that depends
+on the data is summed over the ranks (detached, the clamps applied to the
+sum), an element count is multiplied by the world size.  The ranks' losses
+then sum to the global loss, and their gradients, summed and not divided,
+to its gradient.  Outside it (one process) nothing is summed.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
@@ -24,6 +35,31 @@ import torch.nn.functional as F
 from hiast_tpu_torch.registry import LOSS
 
 IGNORE_INDEX = 255
+
+_RANKS: contextvars.ContextVar = contextvars.ContextVar("loss_ranks", default=None)
+
+
+@contextlib.contextmanager
+def over_ranks(summed: Callable[[torch.Tensor], torch.Tensor], world: int):
+    """Denominators of the global batch inside: ``summed(t)`` is a count
+    ``t`` summed over the ``world`` ranks (the module docstring)."""
+    token = _RANKS.set((summed, world))
+    try:
+        yield
+    finally:
+        _RANKS.reset(token)
+
+
+def _global_count(count: torch.Tensor) -> torch.Tensor:
+    """A data-dependent count of this rank's batch, summed over the ranks."""
+    ranks = _RANKS.get()
+    return count if ranks is None else ranks[0](count.detach())
+
+
+def _global_numel(n: int) -> int:
+    """An element count that every rank shares, times the world size."""
+    ranks = _RANKS.get()
+    return n if ranks is None else n * ranks[1]
 
 
 def region_mask(refer_labels: torch.Tensor, region: str, ignore_index: int = IGNORE_INDEX) -> torch.Tensor:
@@ -43,8 +79,14 @@ def _masked_nonzero_mean(loss: torch.Tensor, mask: torch.Tensor) -> torch.Tensor
     if loss.dim() == 4:
         mask = mask[:, None]
     masked = loss * mask.to(loss.dtype)
-    count = (masked != 0).sum().clamp(min=1).to(loss.dtype)
+    count = _global_count((masked != 0).sum()).clamp(min=1).to(loss.dtype)
     return masked.sum() / count
+
+
+def _mean(x: torch.Tensor) -> torch.Tensor:
+    """``x.mean()`` over the global batch."""
+    world = _global_numel(1)
+    return x.mean() if world == 1 else x.sum() / (x.numel() * world)
 
 
 def build_region_weight(plbl: torch.Tensor, ignore_index: int = IGNORE_INDEX):
@@ -80,9 +122,9 @@ def cross_entropy(
     nll = torch.where(valid, nll, torch.zeros_like(nll))
     if refer_labels is None:
         if weights is None:
-            denom = valid.sum().clamp(min=1).to(nll.dtype)
+            denom = _global_count(valid.sum()).clamp(min=1).to(nll.dtype)
         else:
-            denom = torch.where(valid, w, torch.zeros_like(w)).sum().clamp(min=1e-12)
+            denom = _global_count(torch.where(valid, w, torch.zeros_like(w)).sum()).clamp(min=1e-12)
         return nll.sum() / denom
     return _masked_nonzero_mean(nll, region_mask(refer_labels, region, ignore_index))
 
@@ -106,7 +148,7 @@ def soft_cross_entropy(
         t = t * torch.as_tensor(weights, dtype=nll.dtype, device=nll.device).view(1, -1, 1, 1)
     per_elem = nll * t
     if refer_labels is None:
-        return per_elem.sum() / per_elem.numel()
+        return per_elem.sum() / _global_numel(per_elem.numel())
     return _masked_nonzero_mean(per_elem, region_mask(refer_labels, region, ignore_index))
 
 
@@ -126,7 +168,7 @@ def kl_divergence(
     q = F.softmax(target_logits.float(), dim=1)
     per_elem = q * (torch.log(q.clamp(min=1e-30)) - logp)
     if refer_labels is None:
-        return per_elem.mean()
+        return _mean(per_elem)
     return _masked_nonzero_mean(per_elem, region_mask(refer_labels, region, ignore_index))
 
 
@@ -141,7 +183,7 @@ def mse(
 ) -> torch.Tensor:
     per_elem = (logits.float() - labels.float()) ** 2
     if refer_labels is None:
-        return per_elem.mean()
+        return _mean(per_elem)
     return _masked_nonzero_mean(per_elem, region_mask(refer_labels, region, ignore_index))
 
 
@@ -149,7 +191,7 @@ def mse(
 def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor, **_) -> torch.Tensor:
     """Binary CE on logits in the stable form max(x, 0) - x y + log1p(exp(-|x|))."""
     x, y = logits.float(), labels.float()
-    return (torch.clamp(x, min=0) - x * y + torch.log1p(torch.exp(-x.abs()))).mean()
+    return _mean(torch.clamp(x, min=0) - x * y + torch.log1p(torch.exp(-x.abs())))
 
 
 def kld_to_uniform(logits: torch.Tensor, pixel_weight: torch.Tensor) -> torch.Tensor:
@@ -159,7 +201,7 @@ def kld_to_uniform(logits: torch.Tensor, pixel_weight: torch.Tensor) -> torch.Te
     the loss is -1/C * sum(w * log_softmax) / (#pixels * C)."""
     num_classes = logits.shape[1]
     logp = _log_softmax(logits)
-    val_num = (pixel_weight > 0).sum().clamp(min=1).float() * num_classes
+    val_num = _global_count((pixel_weight > 0).sum()).clamp(min=1).float() * num_classes
     return -(pixel_weight[:, None] * logp).sum() / (num_classes * val_num)
 
 
@@ -168,7 +210,7 @@ def entropy_sharpen(logits: torch.Tensor, pixel_weight: torch.Tensor) -> torch.T
     -sum(softmax * w * log_softmax) / (#pixels * C)."""
     num_classes = logits.shape[1]
     logp = _log_softmax(logits)
-    val_num = (pixel_weight > 0).sum().clamp(min=1).float() * num_classes
+    val_num = _global_count((pixel_weight > 0).sum()).clamp(min=1).float() * num_classes
     return -(logp.exp() * pixel_weight[:, None] * logp).sum() / val_num
 
 
@@ -186,4 +228,4 @@ def mean_entropy(prob: torch.Tensor) -> torch.Tensor:
     log2-normalised by the number of classes."""
     b, c, h, w = prob.shape
     p = prob.float()
-    return -(p * torch.log2(p + 1e-30)).sum() / (b * h * w * math.log2(c))
+    return -(p * torch.log2(p + 1e-30)).sum() / (_global_numel(b * h * w) * math.log2(c))

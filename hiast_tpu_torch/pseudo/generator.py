@@ -26,6 +26,17 @@ The policies (``PSEUDO_POLICY``):
 
 The host copies the uint8 label maps back one batch late and writes the
 PNGs on a thread pool.
+
+Under a process group (``parallel/mesh.py``) each rank takes its
+contiguous share of every global batch, padded to a multiple of the world
+size, with its own valid-pixel count (0 where its whole share is padding).
+The kernels' histograms, counts and confidence sums are summed over the
+ranks before the policy's update, so the carried state is the same on every
+rank, as JAX's replicated state is; the confidence sums travel as float64
+(the kernel's fixed-point total), so they round once to float32, as at
+world size 1.  Each rank writes the PNGs of its samples; rank 0 decides
+whether the output dir is done or must be prepared, gathers every rank's
+per-sample counts in the global order and writes the statistics files.
 """
 from __future__ import annotations
 
@@ -41,8 +52,18 @@ import torch
 from hiast_tpu_torch.data.pipeline import pad_batch
 from hiast_tpu_torch.data.png import write_png
 from hiast_tpu_torch.ops.cuda.select_kernel import ias_hist, ias_select
+from hiast_tpu_torch.parallel import mesh
 from hiast_tpu_torch.pseudo import policies as P
 from hiast_tpu_torch.registry import PSEUDO_POLICY
+
+
+def _summed_select_stats(sums: torch.Tensor, counts: torch.Tensor):
+    """(confidence sums [C] float32, selected pixels [C] float32) of the
+    global batch, from this rank's float64 ``ias_select`` sums and [b, C]
+    counts: summed over the ranks, then rounded once."""
+    totals = counts.sum(0).double()
+    mesh.all_reduce_sum([sums, totals])
+    return sums.float(), totals.float()
 
 
 class BasePseudoGenerator:
@@ -79,6 +100,7 @@ class BasePseudoGenerator:
         self.statics_class = np.zeros(self.num_classes, np.int64)
         self.sample_stats: list[dict] = []
         self.samples_class: dict[int, list] = {c: [] for c in range(self.num_classes)}
+        self._records: list[list] = []  # a batch's [(path, {class: pixels})], this rank's samples
         self.class_mean_probs = np.zeros(self.num_classes, np.float32)
         self.class_threshold: np.ndarray | None = None
         self.run_seconds: float | None = None  # wall time of the last run()
@@ -86,12 +108,14 @@ class BasePseudoGenerator:
         self._png_futures: list = []
 
     def _pad(self, batch):
-        """Pad a partial tail batch to ``pseudo_policy.batch_size``.  Returns
-        (images, n_valid, image_paths): the pad samples are a suffix, masked
-        out of every statistic by a valid-pixel count, and ``image_paths``
-        keeps its true length, so ``_record_batch``'s zip drops them from
-        every written artifact."""
-        target = self.cfg.pseudo_policy.batch_size or batch["images"].shape[0]
+        """Pad a partial tail batch to ``pseudo_policy.batch_size`` (this
+        rank's share of it under a process group).  Returns (images,
+        n_valid, image_paths): the pad samples are a suffix, masked out of
+        every statistic by a valid-pixel count, and ``image_paths`` keeps
+        its true length, so ``_record_batch``'s zip drops them from every
+        written artifact."""
+        size = self.cfg.pseudo_policy.batch_size
+        target = -(-size // mesh.world_size()) if size else batch["images"].shape[0]
         padded = pad_batch(batch, target)
         return padded["images"], int(padded["n_valid"]), batch["image_paths"]
 
@@ -108,15 +132,9 @@ class BasePseudoGenerator:
 
     # -- host-side bookkeeping ---------------------------------------------
     def _record_batch(self, plbl_np, counts_np, image_paths):
+        records = []
         for img_path, counts, plbl in zip(image_paths, counts_np, plbl_np):
-            current = {}
-            for c in np.nonzero(counts)[0]:
-                n = int(counts[c])
-                current[int(c)] = n
-                self.samples_class[int(c)].append([img_path, n])
-                self.statics_class[c] += n
-            current["file"] = img_path
-            self.sample_stats.append(current)
+            records.append((img_path, {int(c): int(counts[c]) for c in np.nonzero(counts)[0]}))
             name = os.path.splitext(os.path.basename(img_path))[0]
             # PNG encoding overlaps the next batch (zlib releases the GIL)
             self._png_futures.append(
@@ -124,6 +142,18 @@ class BasePseudoGenerator:
                     write_png, os.path.join(self.save_dir, f"{name}_pseudo_label.png"), plbl
                 )
             )
+        self._records.append(records)
+
+    def _collect_stats(self):
+        """The per-sample statistics of every rank, in the global order:
+        batch by batch, each batch's shares in rank order."""
+        for batch in zip(*mesh.gather_objects(self._records)):
+            for img_path, current in (rec for share in batch for rec in share):
+                for c, n in current.items():
+                    self.samples_class[c].append([img_path, n])
+                    self.statics_class[c] += n
+                self.sample_stats.append({**current, "file": img_path})
+        self._records = []
 
     def _drain_writers(self):
         for f in self._png_futures:
@@ -133,6 +163,12 @@ class BasePseudoGenerator:
     def save_data(self):
         self._drain_writers()
         self._png_pool.shutdown(wait=True)
+        self._collect_stats()
+        if mesh.is_main():
+            self._write_stats()
+        mesh.barrier()
+
+    def _write_stats(self):
         if self.class_threshold is not None:
             np.save(os.path.join(self.stats_dir, "class_threshold.npy"), self.class_threshold)
         np.save(os.path.join(self.stats_dir, "statics_class.npy"), self.statics_class)
@@ -222,10 +258,12 @@ class BasePseudoGenerator:
         raise NotImplementedError
 
     def run(self):
-        if self.already_done():
+        if mesh.broadcast_object(self.already_done() if mesh.is_main() else None):
             print(f"%% pseudo labels already exist in {self.save_dir}; skipping")
             return
-        self.prepare_dirs()
+        if mesh.is_main():
+            self.prepare_dirs()
+        mesh.barrier()
         start = time.perf_counter()
         self.generate()
         self.save_data()
@@ -255,8 +293,8 @@ class ConstantThresholdGenerator(BasePseudoGenerator):
             images, n_valid, paths = self._pad(batch)
             full, _ = self._forward(images)
             plbl, counts, sums, _ = ias_select(full, select_thr, n_valid * full.shape[2] * full.shape[3])
-            cmp = P.update_class_mean_probs(cmp, sums, counts.sum(0).float(),
-                                            self.cfg.preprocessor.copy_paste.gamma)
+            sums, totals = _summed_select_stats(sums, counts)
+            cmp = P.update_class_mean_probs(cmp, sums, totals, self.cfg.preprocessor.copy_paste.gamma)
             return plbl, counts, paths
 
         self._run_select_loop(step)
@@ -285,6 +323,7 @@ class CBSTGenerator(ConstantThresholdGenerator):
             images, n_valid, _ = self._pad(batch)
             _, stats = self._forward(images)
             hist += ias_hist(stats, n_valid * stats.shape[2] * stats.shape[3], self.num_bins)
+        mesh.all_reduce_sum([hist])
         return P.cbst_thresholds(hist, self.cfg.pseudo_policy.cbst.p)
 
 
@@ -300,12 +339,12 @@ class IASGenerator(BasePseudoGenerator):
         ias = self.cfg.pseudo_policy.ias
         stats_pixels = logits_stats.shape[2] * logits_stats.shape[3]
         hist = ias_hist(logits_stats, n_valid * stats_pixels, self.num_bins)
-        new_thr = P.ias_update(state, hist, ias.alpha, ias.beta, ias.gamma)
+        new_thr = P.ias_update(state, mesh.all_reduce_sum([hist])[0], ias.alpha, ias.beta, ias.gamma)
         full_pixels = logits_full.shape[2] * logits_full.shape[3]
         plbl, counts, sums, _ = ias_select(logits_full, new_thr, n_valid * full_pixels)
+        sums, totals = _summed_select_stats(sums, counts)
         new_cmp = P.update_class_mean_probs(
-            state.class_mean_probs, sums, counts.sum(0).float(),
-            self.cfg.preprocessor.copy_paste.gamma,
+            state.class_mean_probs, sums, totals, self.cfg.preprocessor.copy_paste.gamma,
         )
         return plbl, counts, P.IASState(new_thr, new_cmp)
 

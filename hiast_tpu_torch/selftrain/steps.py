@@ -21,16 +21,29 @@ a snapshot taken before the forward), and only the step count advances, as
 in the JAX ``_guard_nonfinite``.  That check reads one flag back to the
 host per step; with the option off (the default) a step never waits for
 the card.
+
+Under a process group (``parallel/mesh.py``) a step is the step of the
+global batch, of which this rank holds its contiguous share: the losses
+take the global batch's denominators (``ops/losses.py:over_ranks``),
+BatchNorm its statistics (``models/norm.py``), and after the backward one
+all-reduce sums the trainable gradients and the losses over the ranks, so
+the optimizer, the guard and the reported losses see the global values and
+every rank steps, or skips, alike.  The strong view's draws are made for
+the global batch from the same-seeded generator, and each rank takes its
+rows.  At world size 1 every sum is the identity.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Callable
 
 import torch
 from torch import nn
 
+from hiast_tpu_torch.ops import losses as L
 from hiast_tpu_torch.ops.color_aug import apply_color_aug, draw_color_aug
+from hiast_tpu_torch.parallel import mesh
 from hiast_tpu_torch.selftrain.train_state import ema_update, set_lr
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -100,6 +113,31 @@ class StepCount:
     updates: int = 0
 
 
+def _global_losses():
+    """The context in which a step's losses take the global batch's
+    denominators; none without a process group."""
+    if not mesh.initialized():
+        return contextlib.nullcontext()
+    return L.over_ranks(mesh.summed, mesh.world_size())
+
+
+def _sum_over_ranks(losses: dict, params: list[torch.Tensor]) -> dict:
+    """Sum the gradients of ``params`` over the ranks, in place, and
+    return the detached losses summed likewise: one collective, after the
+    backward and before the guard and the update."""
+    if not mesh.initialized():
+        return {k: v.detach() for k, v in losses.items()}
+    reported = {k: v.detach().clone() for k, v in losses.items()}
+    mesh.all_reduce_sum([p.grad for p in params if p.grad is not None] + list(reported.values()))
+    return reported
+
+
+def _strong_draws(local_b: int, kind: str, generator: torch.Generator):
+    """This rank's rows of the colour-aug draws of the global batch."""
+    global_b = local_b * mesh.world_size()
+    return draw_color_aug(global_b, kind, generator).rows(mesh.local_share(global_b))
+
+
 def _all_finite(losses: dict, params: list[torch.Tensor]) -> bool:
     """Whether every loss and gradient is finite; one read to the host."""
     grads = [p.grad for p in params if p.grad is not None]
@@ -141,11 +179,13 @@ def make_source_only_step(segmentor, optimizer: torch.optim.Optimizer, lr_fn: Ca
         module.train()
         snapshot = [b.clone() for b in buffers] if guard else None
         out = segmentor.forward(normalize_image(batch["s_img"]), dtype)
-        losses = segmentor.compute_loss(out["logits"], batch["s_lbl"].long())
+        with _global_losses():
+            losses = segmentor.compute_loss(out["logits"], batch["s_lbl"].long())
         optimizer.zero_grad(set_to_none=True)
         _total_loss(losses).backward()
+        losses = _sum_over_ranks(losses, params)
         _apply_update(optimizer, lr_fn, count, losses, params, buffers, snapshot)
-        return {k: v.detach() for k, v in losses.items()}
+        return losses
 
     return step
 
@@ -181,15 +221,18 @@ def make_adversarial_step(segmentor, optimizer: torch.optim.Optimizer, lr_fn: Ca
         t_logits = segmentor.forward(normalize_image(batch["t_img"]), dtype)["logits"]
         discriminator.requires_grad_(False)
         try:
-            losses = segmentor.compute_g_loss(s_logits, t_logits, batch["s_lbl"].long(), dtype)
+            with _global_losses():
+                losses = segmentor.compute_g_loss(s_logits, t_logits, batch["s_lbl"].long(), dtype)
         finally:
             discriminator.requires_grad_(True)
         optimizer.zero_grad(set_to_none=True)
         _total_loss(losses).backward()
-        d_losses = segmentor.compute_d_loss(s_logits, t_logits, dtype)
+        with _global_losses():
+            d_losses = segmentor.compute_d_loss(s_logits, t_logits, dtype)
         d_optimizer.zero_grad(set_to_none=True)
         d_losses["D_loss"].backward()
         losses.update(d_losses)
+        losses = _sum_over_ranks(losses, params + d_params)
         if snapshot is None or _all_finite(losses, params + d_params):
             set_lr(optimizer, lr_fn(count.updates))
             optimizer.step()
@@ -199,7 +242,7 @@ def make_adversarial_step(segmentor, optimizer: torch.optim.Optimizer, lr_fn: Ca
         else:
             torch._foreach_copy_(buffers, snapshot)
         count.iterations += 1
-        return {k: v.detach() for k, v in losses.items()}
+        return losses
 
     return step
 
@@ -223,11 +266,13 @@ def make_self_training_step(segmentor, optimizer: torch.optim.Optimizer, lr_fn: 
         img = normalize_image(batch["t_img"])
         out = _forward_for_loss(segmentor, img, dtype)
         plbl = _labels_for_loss(segmentor, batch["t_plbl"].long(), out["logits"])
-        losses = segmentor.compute_loss(out["logits"], plbl)
+        with _global_losses():
+            losses = segmentor.compute_loss(out["logits"], plbl)
         optimizer.zero_grad(set_to_none=True)
         _total_loss(losses).backward()
+        losses = _sum_over_ranks(losses, params)
         _apply_update(optimizer, lr_fn, count, losses, params, buffers, snapshot)
-        return {k: v.detach() for k, v in losses.items()}
+        return losses
 
     return step
 
@@ -275,8 +320,8 @@ def make_consistency_step(segmentor, ema_module: nn.Module, optimizer: torch.opt
         snapshot = [b.clone() for b in buffers] if guard else None
         weak_raw = batch["t_img"]
         if strong_aug is not None:
-            draws = draw_color_aug(weak_raw.shape[0], strong_aug, generator)
-            strong_raw = apply_color_aug(weak_raw, draws, torch.bfloat16)
+            strong_raw = apply_color_aug(weak_raw, _strong_draws(weak_raw.shape[0], strong_aug, generator),
+                                         torch.bfloat16)
         else:
             strong_raw = batch.get("t_img_strong", weak_raw)
         weak, strong = normalize_image(weak_raw), normalize_image(strong_raw)
@@ -288,18 +333,20 @@ def make_consistency_step(segmentor, ema_module: nn.Module, optimizer: torch.opt
         plbl = _labels_for_loss(segmentor, batch["t_plbl"].long(), t_logits)
 
         out = _forward_for_loss(segmentor, strong, dtype)
-        losses = segmentor.compute_loss(out["logits"], plbl, t_cst_lbl=cst_lbl)
-        if dcst and "copy_paste_mask" in batch:
-            cp_mask = _labels_for_loss(segmentor, batch["copy_paste_mask"].long(), t_logits)
-            losses.update(segmentor.compute_directional_consistency_loss(
-                out["logits"], t_logits, cp_mask, bidirectional=False))
+        with _global_losses():
+            losses = segmentor.compute_loss(out["logits"], plbl, t_cst_lbl=cst_lbl)
+            if dcst and "copy_paste_mask" in batch:
+                cp_mask = _labels_for_loss(segmentor, batch["copy_paste_mask"].long(), t_logits)
+                losses.update(segmentor.compute_directional_consistency_loss(
+                    out["logits"], t_logits, cp_mask, bidirectional=False))
         optimizer.zero_grad(set_to_none=True)
         _total_loss(losses).backward()
+        losses = _sum_over_ranks(losses, params)
         _apply_update(optimizer, lr_fn, count, losses, params, buffers, snapshot)
         if count.iterations % iter_update == 0:
             with torch.no_grad():
                 ema_update(ema_params, student_params, gamma)
-        return {k: v.detach() for k, v in losses.items()}
+        return losses
 
     return step
 
@@ -351,7 +398,7 @@ def make_mutual_step(segmentor, peer_module: nn.Module, optimizer: torch.optim.O
         targets = [target(student, weak) for student in students]
         if strong_input:
             inputs = [normalize_image(apply_color_aug(
-                weak_raw, draw_color_aug(weak_raw.shape[0], strong_aug, generator), torch.bfloat16))
+                weak_raw, _strong_draws(weak_raw.shape[0], strong_aug, generator), torch.bfloat16))
                 for _ in students]
         else:
             inputs = [weak, weak]
@@ -361,13 +408,15 @@ def make_mutual_step(segmentor, peer_module: nn.Module, optimizer: torch.optim.O
         for prefix, student, img, peer_target in zip(("", "peer_"), students, inputs, targets[::-1]):
             student.module.train()
             logits = _forward_for_loss(student, img, dtype)["logits"]
-            own = student.compute_loss(logits, plbl)
-            own.update(student.compute_mutual_loss(logits, plbl, peer_target))
+            with _global_losses():
+                own = student.compute_loss(logits, plbl)
+                own.update(student.compute_mutual_loss(logits, plbl, peer_target))
             total = total + _total_loss(own)
             losses.update({prefix + k: v for k, v in own.items()})
         optimizer.zero_grad(set_to_none=True)
         peer_optimizer.zero_grad(set_to_none=True)
         total.backward()
+        losses = _sum_over_ranks(losses, params)
         if snapshot is None or _all_finite(losses, params):
             lr = lr_fn(count.updates)
             for opt in (optimizer, peer_optimizer):
@@ -377,6 +426,6 @@ def make_mutual_step(segmentor, peer_module: nn.Module, optimizer: torch.optim.O
         else:
             torch._foreach_copy_(buffers, snapshot)
         count.iterations += 1
-        return {k: v.detach() for k, v in losses.items()}
+        return losses
 
     return step

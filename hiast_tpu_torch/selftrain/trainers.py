@@ -9,9 +9,18 @@ a labelled source, ``SourceOnlyTrainer`` alone and
 ``ConsistencySelfTrainingTrainer`` is the HIAST trainer (EMA teacher,
 strong view on the card, hard-aware copy-paste, the directional-consistency
 loss); ``MutualLearningTrainer`` trains two students that teach each other.
-One device, one process.  Gating the
-side-effect writers on rank 0 comes with multi-GPU training (ROADMAP.md
-item A11).
+
+One process a GPU under ``torchrun`` (``parallel/mesh.py``): the build
+checks ``runtime.mesh`` against the world size (``check_mesh``), each rank
+draws a local batch of ``batch_size / N`` from its own stream
+(``stream_seed``), BatchNorm becomes the synced one above one rank
+(``models/norm.py``), and rank 0's weights and buffers (the EMA teacher,
+the peer and the discriminator included) go to every rank once, after any
+resume.  The steps sum gradients and losses over the ranks
+(``selftrain/steps.py``); validation runs on each rank's share.  Rank 0
+alone writes the config, the log file, the tensorboard events and the
+checkpoints, and the others wait for its saves.  Without a process group
+this is one process on one device.
 
 The loop keeps the JAX trainer's one-batch-deep pipeline: it enqueues step
 k on the card, then assembles and uploads batch k+1 (from pinned memory, so
@@ -34,7 +43,9 @@ from hiast_tpu_torch.data.datasets import build_dataset
 from hiast_tpu_torch.data.native_ops import host_ops_for
 from hiast_tpu_torch.data.pipeline import BatchIterator, infinite_batches, prefetched
 from hiast_tpu_torch.evaluation import make_val_step, run_validation
+from hiast_tpu_torch.models.norm import convert_synced
 from hiast_tpu_torch.models.segmentors import build_segmentor
+from hiast_tpu_torch.parallel import mesh
 from hiast_tpu_torch.registry import PREPROCESSOR, TRAINER
 from hiast_tpu_torch.selftrain import steps as S
 from hiast_tpu_torch.selftrain.train_state import (
@@ -58,7 +69,8 @@ COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 class BaseTrainer:
     """Common assembly: model, optimizer, data, recorder, checkpoint policy.
     The source stream draws from seed ``random_seed``, the target stream
-    from ``random_seed + 1`` (the JAX ``_stream_seed`` offsets)."""
+    from ``random_seed + 1``, each plus 7919 a rank (the JAX
+    ``_stream_seed``)."""
 
     needs_source = False
     needs_target = False
@@ -86,11 +98,14 @@ class BaseTrainer:
     # -- assembly ------------------------------------------------------------
     def initialize(self):
         cfg = self.cfg
+        mesh.check_mesh(cfg, cfg.train.batch_size)
+        self.local_batch = cfg.train.batch_size // mesh.world_size()
         np.random.seed(cfg.train.random_seed)
         torch.manual_seed(cfg.train.random_seed)
         os.makedirs(cfg.work_dir, exist_ok=True)
-        with open(os.path.join(cfg.work_dir, "config.json"), "w") as f:
-            json.dump(cfg.to_dict(), f, indent=1)
+        if mesh.is_main():
+            with open(os.path.join(cfg.work_dir, "config.json"), "w") as f:
+                json.dump(cfg.to_dict(), f, indent=1)
         self.logger = init_logger(os.path.join(cfg.work_dir, "train.log"))
         self.writer = init_writer(os.path.join(cfg.work_dir, "tensorboard"))
         self.ckpt = CheckpointPolicy(
@@ -123,6 +138,7 @@ class BaseTrainer:
         if resume and full is None:
             load_weights(resume, module)
             self.logger.info(f"resumed weights from {resume}")
+        convert_synced(module)
         module.to(self.device)
         self.optimizer = make_optimizer(cfg, module)
         self.count = S.StepCount()
@@ -132,6 +148,8 @@ class BaseTrainer:
             self.count = S.StepCount(int(full["step"]), int(full.get("lr_schedule_step", full["step"])))
             self.logger.info(f"resumed the full train state from {resume} at step {self.step}")
         self.build_extra_state(full)
+        for m in self.replicated_modules():
+            mesh.broadcast_module(m)
         self.lr_fn = lr_schedule(cfg)
         self.model_recorder = ResultRecorder(cfg, "model", self.logger, self.writer, self.lr_fn)
         self.step_fn = self.make_step()
@@ -145,24 +163,36 @@ class BaseTrainer:
         """Hook: state beyond the student and its optimizer, built after the
         student's weights are final (``full``: the resumed state, or None)."""
 
+    def replicated_modules(self) -> list:
+        """Every module whose weights the ranks must share."""
+        return [self.segmentor.module]
+
     def _workers(self):
+        """``dataset.num_workers``; on auto (None) at one rank
+        ``infinite_batches`` takes min(batch, cpu_count - 1), and the ranks
+        of one host split those threads."""
         n = self.cfg.dataset.num_workers
-        return n if n and n > 0 else None  # None: min(batch, cpu_count - 1)
+        if n and n > 0:
+            return n
+        local_world = int(os.environ.get("LOCAL_WORLD_SIZE", mesh.world_size()))
+        if local_world <= 1:
+            return None
+        return min(self.local_batch, max((os.cpu_count() or 1) - 1, 0) // local_world)
+
+    def _stream(self, ds, offset: int):
+        return infinite_batches(ds, self.local_batch, seed=mesh.stream_seed(self.cfg.train.random_seed, offset),
+                                num_workers=self._workers())
 
     def build_train_data_reader(self):
         cfg = self.cfg
         if self.needs_source:
             ds = build_dataset(cfg, "source", host=self.host)
             self.s_dataset = ds
-            self.s_stream = infinite_batches(
-                ds, cfg.train.batch_size, seed=cfg.train.random_seed, num_workers=self._workers()
-            )
+            self.s_stream = self._stream(ds, 0)
         if self.needs_target:
             ds = build_dataset(cfg, "target", pseudo_dir=cfg.dataset.target.pseudo_dir, host=self.host)
             self.t_dataset = ds
-            self.t_stream = infinite_batches(
-                ds, cfg.train.batch_size, seed=cfg.train.random_seed + 1, num_workers=self._workers()
-            )
+            self.t_stream = self._stream(ds, 1)
 
     def build_val_data_reader(self):
         cfg = self.cfg
@@ -226,7 +256,7 @@ class BaseTrainer:
                     self.model_recorder.report_losses(it)
                 if self.val_step is not None and it % cfg.train.iter_val == 0:
                     self.validate(it)
-                if self._stop_requested:
+                if mesh.any_rank(self._stop_requested, self.device):  # every rank stops at one iteration
                     self.save_checkpoint(it, is_best=False)
                     self.logger.warning(
                         f"preemption checkpoint saved at iter {it}; resume with "
@@ -247,8 +277,10 @@ class BaseTrainer:
         was_training = module.training
         module.eval()
         try:
-            val_iter = BatchIterator(self.v_dataset, self.cfg.validate.batch_size, shuffle=False, drop_last=False)
-            return run_validation(val_step, prefetched(iter(val_iter), depth=2), self.device)
+            val_iter = BatchIterator(self.v_dataset, self.cfg.validate.batch_size, shuffle=False, drop_last=False,
+                                     share=mesh.share())
+            return run_validation(val_step, prefetched(iter(val_iter), depth=2), self.device,
+                                  target=val_iter.local_size)
         finally:
             module.train(was_training)
 
@@ -268,8 +300,14 @@ class BaseTrainer:
     _last_ckpt_iter = 0
 
     def save_checkpoint(self, iteration: int, is_best: bool):
-        self.ckpt.save("model", self.checkpoint_state(), iteration, is_best)
+        """Rank 0 writes (``write_checkpoints``); the other ranks wait."""
+        if mesh.is_main():
+            self.write_checkpoints(iteration, is_best)
+        mesh.barrier()
         self._last_ckpt_iter = iteration
+
+    def write_checkpoints(self, iteration: int, is_best: bool):
+        self.ckpt.save("model", self.checkpoint_state(), iteration, is_best)
 
 
 @TRAINER.register("SourceOnlyTrainer")
@@ -330,6 +368,9 @@ class AdversarialWarmupTrainer(BaseTrainer):
         discriminator.load_state_dict(full["discriminator"])
         self.d_optimizer.load_state_dict(full["d_optimizer"])
         self.logger.info(f"resumed the discriminator from {cfg.train.resume_from}")
+
+    def replicated_modules(self):
+        return super().replicated_modules() + [self.segmentor.discriminator]
 
     def make_step(self):
         return S.make_adversarial_step(
@@ -403,6 +444,9 @@ class ConsistencySelfTrainingTrainer(SelfTrainingTrainer):
                     p.copy_(full["ema"][name])
             self.logger.info(f"resumed the EMA teacher from {self.cfg.train.resume_from}")
 
+    def replicated_modules(self):
+        return super().replicated_modules() + [self.ema_module]
+
     def build_all_model(self):
         super().build_all_model()
         self.ema_recorder = ResultRecorder(self.cfg, "ema_model", self.logger, self.writer, self.lr_fn)
@@ -435,9 +479,7 @@ class ConsistencySelfTrainingTrainer(SelfTrainingTrainer):
             ds.set_preprocessor(PREPROCESSOR[kind](cfg, ds, class_value))
         self.t_dataset = ds
         self.paste_shares: list[float] = []  # share of pasted pixels per batch
-        self.t_stream = infinite_batches(
-            ds, cfg.train.batch_size, seed=cfg.train.random_seed + 1, num_workers=self._workers()
-        )
+        self.t_stream = self._stream(ds, 1)
 
     def next_batch(self):
         b = next(self.t_stream)
@@ -479,8 +521,8 @@ class ConsistencySelfTrainingTrainer(SelfTrainingTrainer):
         state["ema"] = {name: p.detach() for name, p in self.ema_module.named_parameters()}
         return state
 
-    def save_checkpoint(self, iteration: int, is_best: bool):
-        super().save_checkpoint(iteration, is_best)
+    def write_checkpoints(self, iteration: int, is_best: bool):
+        super().write_checkpoints(iteration, is_best)
         self.sync_ema_buffers()
         save_train_state(self.ckpt.path("ema_model_last"), self.ema_module.state_dict())
 
@@ -518,6 +560,7 @@ class MutualLearningTrainer(SelfTrainingTrainer):
         if cfg.mut_training.resume_from:
             load_weights(cfg.mut_training.resume_from, self.peer_module)
             self.logger.info(f"peer initialized from {cfg.mut_training.resume_from}")
+        convert_synced(self.peer_module)
         self.peer_module.to(self.device)
         self.peer_segmentor = self.segmentor.with_module(self.peer_module)
         self.peer_optimizer = make_optimizer(cfg, self.peer_module)
@@ -531,6 +574,9 @@ class MutualLearningTrainer(SelfTrainingTrainer):
         self.peer_module.load_state_dict(full["peer_state_dict"])
         self.peer_optimizer.load_state_dict(full["peer_optimizer"])
         self.logger.info(f"resumed the peer from {cfg.train.resume_from}")
+
+    def replicated_modules(self):
+        return super().replicated_modules() + [self.peer_module]
 
     def build_all_model(self):
         super().build_all_model()

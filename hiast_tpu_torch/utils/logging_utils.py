@@ -3,11 +3,17 @@
 The port of ``hiast_tpu/utils/logging_utils.py`` without its ``Profiler``,
 which wraps ``jax.profiler``; the port's profiling is ``torch.profiler``
 around a run (``chip_smoke.py --profile``).
+
+Under a process group (``parallel/mesh.py``) rank 0 alone writes the log
+file and the tensorboard events; every rank logs to its console, the other
+ranks' lines prefixed with their rank.
 """
 from __future__ import annotations
 
 import logging
 import os
+
+from hiast_tpu_torch.parallel import mesh
 
 
 def init_logger(log_path: str | None, name: str = "hiast_tpu_torch") -> logging.Logger:
@@ -18,9 +24,10 @@ def init_logger(log_path: str | None, name: str = "hiast_tpu_torch") -> logging.
         logger.removeHandler(handler)
     fmt = logging.Formatter("[%(asctime)s-%(levelname)s]: %(message)s")
     sh = logging.StreamHandler()
-    sh.setFormatter(fmt)
+    sh.setFormatter(fmt if mesh.is_main() else
+                    logging.Formatter(f"[rank {mesh.rank()}][%(asctime)s-%(levelname)s]: %(message)s"))
     logger.addHandler(sh)
-    if log_path:
+    if log_path and mesh.is_main():
         os.makedirs(os.path.dirname(log_path) or ".", exist_ok=True)
         fh = logging.FileHandler(log_path, mode="a")
         fh.setFormatter(fmt)
@@ -29,9 +36,9 @@ def init_logger(log_path: str | None, name: str = "hiast_tpu_torch") -> logging.
 
 
 def init_writer(tensorboard_dir: str | None):
-    """A tensorboardX ``SummaryWriter``, or None without a directory or
-    without tensorboardX."""
-    if not tensorboard_dir:
+    """A tensorboardX ``SummaryWriter``, or None without a directory,
+    without tensorboardX or off rank 0."""
+    if not tensorboard_dir or not mesh.is_main():
         return None
     try:
         from tensorboardX import SummaryWriter

@@ -126,7 +126,7 @@ def main(argv: list[str]) -> int:
         sel_ms = cs.device_ms(torch, lambda: K.ias_select(full, thr, n))
         hist_bound, _ = cs.bound_ms(n * cs.C * 4 + cs.C * nb * 4, n * cs.C * 4.0)
         low_bound, _ = cs.bound_ms(low_n * cs.C * 4 + cs.C * nb * 4, low_n * cs.C * 4.0)
-        sel_bound, _ = cs.bound_ms(n * cs.C * 4 + cs.C * 4 + n + cs.B * cs.C * 4 + cs.C * 4, n * cs.C * 4.0)
+        sel_bound, _ = cs.bound_ms(n * cs.C * 4 + cs.C * 4 + n + cs.B * cs.C * 4 + cs.C * 8, n * cs.C * 4.0)
         times[name] = {"ias_hist": hist_ms, "ias_hist_low": low_ms, "ias_select": sel_ms}
         print(f"[{name}] ias_hist {hist_ms:.4f} ms (bound {hist_bound:.4f}, {hist_bound / hist_ms:.3f} of it); "
               f"[low] {low_ms:.4f} ms (bound {low_bound:.4f}); "

@@ -1,6 +1,7 @@
 """Import hygiene of the port: it stands alone beside the JAX package.
 
-- No module of hiast_tpu_torch/ and no line of chip_smoke.py imports jax,
+- No module of hiast_tpu_torch/, no line of chip_smoke.py and no line of
+  tests/torch_dp_worker.py (the data-parallel test's workers) imports jax,
   flax, optax, orbax or anything of hiast_tpu (its numpy-only modules
   included: the port keeps its own copies).
 - yaml, PIL and cv2, which the card's machine may lack, are imported only
@@ -26,7 +27,8 @@ LAZY_ONLY = ("yaml", "PIL", "cv2")
 
 
 def _port_files():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    # the data-parallel test's worker processes run the port alone
+    files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "tests", "torch_dp_worker.py")]
     for root, _dirs, names in os.walk(os.path.join(REPO, "hiast_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -64,7 +66,8 @@ def test_the_port_has_files_to_check():
                    ("ops", "losses.py"), ("selftrain", "train_state.py"), ("selftrain", "trainers.py"),
                    ("utils", "recorder.py"), ("utils", "logging_utils.py"), ("cli", "train.py"),
                    ("ops", "color_aug.py"), ("data", "copy_paste.py"), ("data", "png.py"),
-                   ("data", "native_ops.py"), ("cli", "export_model.py"), ("models", "remat.py")):
+                   ("data", "native_ops.py"), ("cli", "export_model.py"), ("models", "remat.py"),
+                   ("parallel", "__init__.py"), ("parallel", "mesh.py"), ("models", "norm.py")):
         assert os.path.join(REPO, "hiast_tpu_torch", *module) in files
 
 

@@ -155,6 +155,55 @@ def test_select_kernel_with_zero_thresholds_takes_every_valid_pixel(cuda_device,
     torch.testing.assert_close(sums, want[2], rtol=1e-4, atol=0)
 
 
+@pytest.mark.parametrize("nvalid", [0, H * W // 2])  # a rank's share all padding, and part of one sample
+def test_kernels_at_a_data_parallel_share(cuda_device, nvalid):
+    """B1 and B2 on a rank's share of a ragged last batch: nothing valid
+    (an empty histogram, every label 255, zero counts and sums), or part of
+    the first sample; the sums are the kernel's fixed-point total (units of
+    2^-26), unrounded, in float64."""
+    x = _peaked(40, cuda_device)
+    thr = torch.full((C,), 0.99, device=cuda_device)
+    _check_hist(x, nvalid, 2048)
+    _check_select(x, thr, nvalid)
+    labels, counts, sums, _ = K.ias_select(x, thr, nvalid)
+    torch.cuda.synchronize()
+    assert sums.dtype == torch.float64 and torch.equal(sums, torch.round(sums * 2.0**26) / 2.0**26)
+    if nvalid == 0:
+        assert float(K.ias_hist(x, 0, 2048).abs().sum()) == 0.0
+        assert bool((labels == 255).all()) and int(counts.abs().sum()) == 0 and float(sums.abs().sum()) == 0.0
+
+
+def test_synced_batch_norm_over_nccl_at_world_1(cuda_device, tmp_path):
+    """``SyncBatchNorm2d`` in a one-rank NCCL group equals ``nn.BatchNorm2d``
+    on the card (inputs of mean 30): output, input and affine gradients,
+    running statistics, within 1e-5 of each tensor's scale."""
+    import torch.distributed as dist
+
+    from hiast_tpu_torch.models.norm import SyncBatchNorm2d
+
+    gen = torch.Generator().manual_seed(0)
+    x = (30.0 + torch.randn(4, 64, 24, 40, generator=gen)).to(cuda_device)
+    dy = torch.randn(4, 64, 24, 40, generator=gen).to(cuda_device)
+    weight = (0.5 + torch.rand(64, generator=gen)).to(cuda_device)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", world_size=1, rank=0)
+    try:
+        out = []
+        for cls in (torch.nn.BatchNorm2d, SyncBatchNorm2d):
+            bn = cls(64).to(cuda_device)
+            with torch.no_grad():
+                bn.weight.copy_(weight)
+            xi = x.clone().requires_grad_(True)
+            y = bn(xi)
+            (y * dy).sum().backward()
+            out.append([y.detach(), xi.grad, bn.weight.grad, bn.bias.grad, bn.running_mean, bn.running_var])
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    for want, got in zip(*out):
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
 def test_cbst_float64_sum_of_hist_kernels_matches_plain(cuda_device):
     """CBST's dataset pass: the float64 sum of several ``ias_hist`` calls (the
     last batch cut by nvalid) against the plain histograms' sum, and the

@@ -247,7 +247,7 @@ def test_plain_versions_match_pallas_interpret_on_peaked_logits():
 def test_select_plain_sums_in_float64():
     """The plain ``ias_select``'s per-class confidence sums (the CPU path's
     ``class_mean_probabilities.npy``, which picks the next round's hard
-    classes) are taken in float64 and cast: within 1e-6 relative of numpy's
+    classes) are taken and returned in float64: within 1e-6 relative of numpy's
     float64 sum of the selected confidences, on peaked logits of 2 x 19 x
     256 x 512 (a float32 running sum over this many confidences near 1
     drifts past that)."""
@@ -263,5 +263,5 @@ def test_select_plain_sums_in_float64():
     sel = labels.numpy() != 255
     want = np.bincount(labels.numpy()[sel].astype(np.int64), weights=maxprob.numpy()[sel].astype(np.float64),
                        minlength=c)
-    assert sums.dtype == torch.float32 and sel.mean() > 0.9
-    np.testing.assert_allclose(sums.numpy().astype(np.float64), want, rtol=1e-6)
+    assert sums.dtype == torch.float64 and sel.mean() > 0.9
+    np.testing.assert_allclose(sums.numpy(), want, rtol=1e-6)
