@@ -285,6 +285,34 @@
       a sample and a sample and 7 pixels against their plain versions;
       at 0 an empty histogram, every label 255, zero counts and sums; the
       sums float64, the kernel's unrounded fixed-point total.
+13f. The ``space`` mesh axis (``parallel/spatial.py``): two spawned ranks
+      (``--space-rank``) in a gloo group on cuda:0 at ``data=1, space=2``,
+      each holding one slab of every image's rows: (a) 13e's float32 R101
+      consistency step (global batch 2 of 512x1024, CCA on the slabs,
+      cuDNN deterministic) against 13e's world-1 step: losses within 1e-4
+      relative, each gradient's cosine at least 0.99989 (the step's own
+      noise floor, ``scripts/grad_noise_floor.py``) and its norm within
+      1e-3, both ranks' weights equal; (b) the seeded R101's float32 eval
+      forward on a 768x1536 image against world 1's, within 1e-4 of the
+      logits' scale; the IAS generation CLI over phase 3's 4 images at
+      768x1536 with ``runtime.mesh.space 2`` (B1 2 and B2 2 a rank, each
+      on its rows): every B1 and B2 call of each rank (its slab's
+      [3, 19, 384, 1536] logits, the last batch with two pad samples) held
+      against its plain version on the same inputs as in 13e (c), each
+      threshold update redone from the world's summed plain histograms
+      within 1/num_bins of the thresholds B2 was given, and every PNG
+      equal to its two ranks' B2 labels stacked; then against 13e's
+      world-1 artifacts: the files equal, or the labels on at least 99.5%
+      of pixels and the thresholds within 0.004 (bf16: the slabs'
+      convolutions take other cuDNN algorithms; the line prints the share
+      of the differing labels near the slabs' border beside that band's
+      share of the pixels); the validation CLI's
+      IoU within 5e-4 of world 1's; (c) one bf16 SegFormer-B5 self-training
+      step from phase 5's seeded ``.pth`` at a global batch of 2 512x1024
+      crops, each rank's queries against the gathered K/V: B3 52 and B4 52
+      a rank, losses within 1e-3 relative of the same step at world 1 in
+      this process; (d) B3 and B4 against their plain versions at a
+      rank's stage shapes, timed beside SDPA and their bounds.
 14. Prints one JSON line of the kernels, the card line again, and last
    ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` are those of
    the path it serves in this run: ``ias_hist``/``ias_select`` from the
@@ -293,7 +321,10 @@
    ``sra_attention_bwd`` from the SegFormer training run.  The IAS rows
    also carry ``launches_by_path`` (the round driver, the DeepLab-v3+
    round, the mutual round, the handoff round, the Oxford generation, and
-   each rank of phase 13e's world-2 generation) and
+   each rank of phase 13e's and 13f's world-2 generations; the attention
+   rows each rank of 13f's B5 step), ``space_rank_shares`` (13f (b)'s
+   checks of each rank's calls: shape, nvalid, largest error, labels that
+   differ) and
    ``c9``, the times
    at [2, 9, 768, 1280].  For
    ``sra_attention`` the
@@ -761,9 +792,10 @@ def slice_phase(torch, work: str, profile: bool) -> float:
     return N_IMAGES / loop
 
 
-def attention_phase(torch, clock_hz: float) -> dict:
+def attention_phase(torch, clock_hz: float, shapes=ATTN_SHAPES, label: str = f"per batch ({B}x{H}x{W}") -> dict:
     """sra_attention against its plain version and SDPA at the B5 stage
-    shapes; returns its JSON row's numbers, per batch of the main path."""
+    shapes (``shapes``); returns its JSON row's numbers, per batch of the
+    main path (``label``)."""
     import torch.nn.functional as F
 
     from hiast_tpu_torch.ops.cuda.attention import sra_attention, sra_attention_plain
@@ -772,7 +804,7 @@ def attention_phase(torch, clock_hz: float) -> dict:
     rng = np.random.default_rng(2)
     row = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
     t_bytes_sum = t_ops_sum = 0.0
-    for (name, b, nq, nkv, h, d), depth in zip(ATTN_SHAPES, B5_DEPTHS + (0,)):
+    for (name, b, nq, nkv, h, d), depth in zip(shapes, B5_DEPTHS + (0,)):
         q = torch.from_numpy(rng.standard_normal((b, nq, h, d), dtype=np.float32)).to(dev).bfloat16()
         # k and v: the two halves of one kv projection, as the model passes them
         kv = torch.from_numpy(rng.standard_normal((b, nkv, 2 * h * d), dtype=np.float32)).to(dev).bfloat16()
@@ -806,17 +838,19 @@ def attention_phase(torch, clock_hz: float) -> dict:
         del q, kv, k, v, got, want, diff, qh, kh, vh
         torch.cuda.empty_cache()
     row["bound_by"] = "bytes" if t_bytes_sum >= t_ops_sum else "operations"
-    print(f"sra_attention per batch ({B}x{H}x{W}, {sum(B5_DEPTHS)} launches): {row['ms']:.4f} ms, "
+    print(f"sra_attention {label}, {sum(B5_DEPTHS)} launches): {row['ms']:.4f} ms, "
           f"plain {row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms "
           f"(kernel/sdpa {row['ms'] / row['library_ms']:.3f}), bound {row['bound_ms']:.4f} ms "
           f"({row['bound_by']}; SM clock {clock_hz / 1e6:.0f} MHz)")
     return row
 
 
-def attention_bwd_phase(torch, clock_hz: float) -> dict:
+def attention_bwd_phase(torch, clock_hz: float, shapes=TRAIN_ATTN_SHAPES,
+                        label: str = f"per training step ({TRAIN_B}x{TRAIN_H}x{TRAIN_W}") -> dict:
     """The backward kernels against their plain version and SDPA's backward
-    at the B5 training stage shapes; returns their JSON row's numbers, per
-    training step (each stage's time times its blocks: 3, 6, 40, 3)."""
+    at the B5 training stage shapes (``shapes``); returns their JSON row's
+    numbers, per training step (``label``; each stage's time times its
+    blocks: 3, 6, 40, 3)."""
     import torch.nn.functional as F
 
     from hiast_tpu_torch.ops.cuda import attention as A
@@ -826,7 +860,7 @@ def attention_bwd_phase(torch, clock_hz: float) -> dict:
     row = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
     fwd_ms = fwd_stats_ms = 0.0
     t_bytes_sum = t_ops_sum = 0.0
-    for (name, b, nq, nkv, h, d), depth in zip(TRAIN_ATTN_SHAPES, B5_DEPTHS + (0,)):
+    for (name, b, nq, nkv, h, d), depth in zip(shapes, B5_DEPTHS + (0,)):
         def randn(*shape):
             return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev).bfloat16()
 
@@ -887,7 +921,7 @@ def attention_bwd_phase(torch, clock_hz: float) -> dict:
         del q, kv, do, k, v, out, stats, dkv, dk, dv, dq, want, m, lsum, qh, kh, vh, oh, doh
         torch.cuda.empty_cache()
     row["bound_by"] = "bytes" if t_bytes_sum >= t_ops_sum else "operations"
-    print(f"sra_attention_bwd per training step ({TRAIN_B}x{TRAIN_H}x{TRAIN_W}, {sum(B5_DEPTHS)} launches): "
+    print(f"sra_attention_bwd {label}, {sum(B5_DEPTHS)} launches): "
           f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa backward {row['library_ms']:.4f} ms "
           f"(kernel/sdpa {row['ms'] / row['library_ms']:.3f}), "
           f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); the forward at these shapes "
@@ -3141,19 +3175,20 @@ def dp_validation_argv(work: str, pth: str, batch: int) -> list:
     ]
 
 
-def dp_generate_and_validate(torch, work: str, pth: str, tag: str, val_batch: int) -> dict:
+def dp_generate_and_validate(torch, work: str, pth: str, tag: str, val_batch: int, opts: tuple = ()) -> dict:
     """The generation of ``dp_generation_argv`` into ``tag``'s dir (its
     thresholds, class-mean probabilities and launches) and one validation
-    of the seeded R101 at ``val_batch`` (its IoU)."""
+    of the seeded R101 at ``val_batch`` (its IoU), both with ``opts``
+    appended."""
     from hiast_tpu_torch.cli import generate_pseudo_labels, validate
 
     save_dir = dp_dir(work, tag, "pseudo_label", "gray_label")
     torch.cuda.synchronize()
     reset_counts()
-    gen = generate_pseudo_labels.main(dp_generation_argv(work, pth, save_dir))
+    gen = generate_pseudo_labels.main(dp_generation_argv(work, pth, save_dir) + list(opts))
     torch.cuda.synchronize()
     counts = read_counts()
-    result = validate.main(dp_validation_argv(work, pth, val_batch))
+    result = validate.main(dp_validation_argv(work, pth, val_batch) + list(opts))
     return {"save_dir": save_dir, "thresholds": gen.class_threshold, "cmp": gen.class_mean_probs,
             "counts": counts, "iou": np.asarray(result["iou"]), "gen_s": gen.run_seconds,
             "val_s": result["seconds"]}
@@ -3166,7 +3201,8 @@ def dp_consistency_step(torch, work: str, dtype=None, sync_bn: bool = False, tim
     (TF32 off) unless ``dtype`` says otherwise: under bf16 the two world
     sizes' convolutions, at other batch sizes, round apart by more than a
     wrong reduction would show.  ``sync_bn`` makes every BatchNorm a
-    ``SyncBatchNorm2d`` whatever the world size.  Returns the global losses,
+    ``SyncBatchNorm2d`` whatever the world size.  On a ``space`` axis
+    (phase 13f) each rank takes its slab of the rows.  Returns the global losses,
     every gradient (on rank 0) and each parameter's sum after the step;
     ``timed``, also the median device ms of 3 more steps (CUDA events) and
     the memory allocated before them and at their peak, and the ms of CUDA
@@ -3178,7 +3214,7 @@ def dp_consistency_step(torch, work: str, dtype=None, sync_bn: bool = False, tim
     from hiast_tpu_torch.cli.common import build_cfg, standard_parser
     from hiast_tpu_torch.models.norm import SyncBatchNorm2d, convert_synced
     from hiast_tpu_torch.models.segmentors import build_segmentor
-    from hiast_tpu_torch.parallel import mesh
+    from hiast_tpu_torch.parallel import mesh, spatial
     from hiast_tpu_torch.selftrain.steps import StepCount, make_consistency_step
     from hiast_tpu_torch.selftrain.train_state import lr_schedule, make_optimizer
 
@@ -3192,6 +3228,8 @@ def dp_consistency_step(torch, work: str, dtype=None, sync_bn: bool = False, tim
         for m in segmentor.module.modules():
             if isinstance(m, torch.nn.BatchNorm2d):
                 m.__class__ = SyncBatchNorm2d
+    if mesh.space_size() > 1:
+        spatial.convert_spatial(segmentor.module)
     segmentor.module.to("cuda")
     ema = copy.deepcopy(segmentor.module).requires_grad_(False).eval()
     optimizer = make_optimizer(cfg, segmentor.module)
@@ -3202,10 +3240,12 @@ def dp_consistency_step(torch, work: str, dtype=None, sync_bn: bool = False, tim
     lbl = rng.integers(0, C, size=(DP_B, TRAIN_H, TRAIN_W)).astype(np.uint8)
     lbl[rng.random(lbl.shape) < 0.25] = 255
     share = mesh.local_share(DP_B)
-    batch = {"t_img": torch.from_numpy(img[share]).cuda(), "t_plbl": torch.from_numpy(lbl[share]).cuda()}
+    batch = {"t_img": torch.from_numpy(mesh.local_rows(img[share])).cuda(),
+             "t_plbl": torch.from_numpy(mesh.local_rows(lbl[share])).cuda()}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    losses = step(batch, StepCount())
+    with spatial.sharded_rows(mesh.space_group()):
+        losses = step(batch, StepCount())
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     params = list(segmentor.module.named_parameters())
@@ -3245,6 +3285,27 @@ def dp_artifacts(save_dir: str) -> dict:
     return out
 
 
+def artifact_verdict(got_run: dict, want_run: dict, tag: str, why: str, agreement: float = DP_LABEL_AGREEMENT,
+                     thr_atol: float = 1.0 / NUM_BINS) -> str:
+    """A generation's files against another's: every one equal, or the
+    labels on at least ``agreement`` of the pixels with thresholds within
+    ``thr_atol`` (``why`` the two runs take other cuDNN algorithms)."""
+    got, want = dp_artifacts(got_run["save_dir"]), dp_artifacts(want_run["save_dir"])
+    check(got.keys() == want.keys(), f"{tag}: files {sorted(got)} vs {sorted(want)}")
+    pngs = [k for k in want if k.endswith(".png")]
+    differ = sum(int((got[k] != want[k]).sum()) for k in pngs)
+    pixels = sum(want[k].size for k in pngs)
+    if differ == 0:
+        check(all(got[k] == want[k] for k in want if k not in pngs),
+              f"{tag}: equal labels but other statistics files")
+        return "labels, thresholds, counts and every artifact bit-equal"
+    check(1 - differ / pixels >= agreement, f"{tag}: labels differ on {differ} of {pixels} pixels")
+    thr_diff = float(np.abs(got_run["thresholds"] - want_run["thresholds"]).max())
+    check(thr_diff <= thr_atol, f"{tag}: thresholds off by {thr_diff}")
+    return (f"labels differ on {differ} of {pixels} pixels ({differ / pixels:.4%}; {why}: other cuDNN "
+            f"algorithms), thresholds within {thr_diff:.3g}")
+
+
 def dp_worker(argv: list) -> int:
     """One rank of the world-2 run (``chip_smoke.py --data-parallel-rank R
     STORE WORK PTH``): joins a gloo group through the ``file://`` store on
@@ -3270,36 +3331,60 @@ def dp_worker(argv: list) -> int:
     return 0
 
 
+def hold_hist_share(torch, x, nvalid: int, tag: str, num_bins: int = NUM_BINS, got=None) -> tuple:
+    """B1 on ``x`` at ``nvalid`` (``got``: its histogram from an earlier
+    call on these inputs) against its plain version: the rows' sums exact
+    and the bins within max(2, 1e-4 nvalid) in L1.  Returns (its errors,
+    the plain histogram)."""
+    from hiast_tpu_torch.ops.cuda.select_kernel import ias_hist, ias_hist_plain
+
+    hist = got if got is not None else ias_hist(x, nvalid, num_bins)
+    want = ias_hist_plain(x, nvalid, num_bins)
+    torch.cuda.synchronize()
+    l1 = float((hist - want).abs().sum())
+    check(torch.equal(hist.sum(1), want.sum(1)) and float(hist.sum()) == nvalid, f"ias_hist {tag}: row sums")
+    check(l1 <= max(2, int(1e-4 * max(nvalid, 1))), f"ias_hist {tag}: bins off by {l1} in L1")
+    if nvalid == 0:
+        check(float(hist.abs().sum()) == 0, f"ias_hist {tag}: valid pixels at nvalid 0")
+    return {"hist_l1": l1, "hist_max_abs_err": float((hist - want).abs().max())}, want
+
+
+def hold_select_share(torch, x, thr, nvalid: int, tag: str, got: tuple | None = None) -> dict:
+    """B2 on ``x`` with ``thr`` at ``nvalid`` (``got``: its labels, counts
+    and sums from an earlier call on these inputs) against its plain
+    version: the labels within max(2, 1e-4 nvalid), the counts within the
+    labels that differ, the sums float64, the kernel's unrounded fixed-point
+    total (units of 2^-26), within 1e-5 of the plain version's largest sum
+    and the labels that differ."""
+    from hiast_tpu_torch.ops.cuda.select_kernel import ias_select, ias_select_plain
+
+    labels, counts, sums = got if got is not None else ias_select(x, thr, nvalid)[:3]
+    w_labels, w_counts, w_sums, _ = ias_select_plain(x, thr, nvalid)
+    torch.cuda.synchronize()
+    differ = int((labels != w_labels).sum())
+    check(differ <= max(2, int(1e-4 * max(nvalid, 1))) and int((counts - w_counts).abs().sum()) <= differ,
+          f"ias_select {tag}: {differ} labels differ")
+    check(sums.dtype == torch.float64 and torch.equal(sums, torch.round(sums * 2.0**26) / 2.0**26),
+          f"ias_select {tag}: the sums are not the unrounded fixed-point total")
+    err = float((sums - w_sums).abs().max())
+    check(err <= 1e-5 * float(w_sums.abs().max()) + differ, f"ias_select {tag}: sums off by {err}")
+    if nvalid == 0:
+        check(bool((labels == 255).all()) and int(counts.abs().sum()) == 0 and float(sums.abs().sum()) == 0,
+              f"ias_select {tag}: selections at nvalid 0")
+    return {"labels_differ": differ, "sums_err": err}
+
+
 def dp_share_kernels(torch) -> dict:
     """B1 and B2 on a rank's share of a ragged last batch, [2, 19, 768,
     1536] peaked logits: nothing valid, half of the first sample, and the
-    first sample and 7 pixels; each against its plain version (the module
-    docstring's tolerances), the sums against the plain version's float64
-    sums and as the kernel's unrounded fixed-point total (units of 2^-26)."""
-    from hiast_tpu_torch.ops.cuda.select_kernel import ias_hist, ias_hist_plain, ias_select, ias_select_plain
-
+    first sample and 7 pixels; each against its plain version
+    (``hold_hist_share``, ``hold_select_share``)."""
     x = torch.from_numpy(peaked_logits((B, C, H, W), 41)).cuda()
     thr = torch.full((C,), 0.99, device="cuda")
     errs = {}
     for nvalid in (0, H * W // 2, H * W + 7):
-        hist, want_hist = ias_hist(x, nvalid, NUM_BINS), ias_hist_plain(x, nvalid, NUM_BINS)
-        labels, counts, sums, _ = ias_select(x, thr, nvalid)
-        w_labels, w_counts, w_sums, _ = ias_select_plain(x, thr, nvalid)
-        torch.cuda.synchronize()
-        tol = max(2, int(1e-4 * max(nvalid, 1)))
-        check(torch.equal(hist.sum(1), want_hist.sum(1)) and float(hist.sum()) == nvalid,
-              f"ias_hist at nvalid {nvalid}: row sums")
-        check(float((hist - want_hist).abs().sum()) <= tol, f"ias_hist at nvalid {nvalid}: bins")
-        differ = int((labels != w_labels).sum())
-        check(differ <= tol and int((counts - w_counts).abs().sum()) <= differ, f"ias_select at nvalid {nvalid}")
-        check(sums.dtype == torch.float64 and torch.equal(sums, torch.round(sums * 2.0**26) / 2.0**26),
-              f"ias_select at nvalid {nvalid}: the sums are not the unrounded fixed-point total")
-        err = float((sums - w_sums).abs().max())
-        check(err <= 1e-5 * float(w_sums.abs().max()) + differ, f"ias_select at nvalid {nvalid}: sums off by {err}")
-        if nvalid == 0:
-            check(float(hist.abs().sum()) == 0 and bool((labels == 255).all()) and int(counts.abs().sum()) == 0
-                  and float(sums.abs().sum()) == 0, "the kernels at nvalid 0 found valid pixels")
-        errs[nvalid] = {"hist_l1": float((hist - want_hist).abs().sum()), "labels_differ": differ, "sums_err": err}
+        errs[nvalid] = hold_hist_share(torch, x, nvalid, f"at nvalid {nvalid}")[0]
+        errs[nvalid].update(hold_select_share(torch, x, thr, nvalid, f"at nvalid {nvalid}"))
     print(f"data-parallel shares of [{B}, {C}, {H}, {W}]: ias_hist and ias_select against their plain versions "
           f"at nvalid 0, {H * W // 2} and {H * W + 7}: {errs}")
     return errs
@@ -3417,21 +3502,7 @@ def data_parallel_phase(torch, work: str, pth: str, card: str) -> dict:
                 "sra_attention_bwd": 0}
     for r, rec in enumerate(ranks):
         check(rec["counts"] == expected, f"world 2 rank {r}: launches {rec['counts']}, expected {expected}")
-    got = dp_artifacts(ranks[0]["save_dir"])
-    check(got.keys() == want.keys(), f"world 2: files {sorted(got)} vs {sorted(want)}")
-    pngs = [k for k in want if k.endswith(".png")]
-    differ = sum(int((got[k] != want[k]).sum()) for k in pngs)
-    pixels = sum(want[k].size for k in pngs)
-    if differ == 0:
-        check(all(got[k] == want[k] for k in want if k not in pngs),
-              "world 2: equal labels but other statistics files")
-        verdict = "labels, thresholds, counts and every artifact bit-equal"
-    else:
-        check(1 - differ / pixels >= DP_LABEL_AGREEMENT, f"world 2: labels differ on {differ} of {pixels} pixels")
-        thr_diff = float(np.abs(ranks[0]["thresholds"] - a["thresholds"]).max())
-        check(thr_diff <= 1.0 / NUM_BINS, f"world 2: thresholds off by {thr_diff}")
-        verdict = (f"labels differ on {differ} of {pixels} pixels (batches of 2 a rank against 3: other cuDNN "
-                   f"algorithms), thresholds within {thr_diff:.3g}")
+    verdict = artifact_verdict(ranks[0], a, "world 2", "batches of 2 a rank against 3")
     for r in ranks:
         check(np.array_equal(r["iou"], w1["iou"]), f"world 2: IoU {r['iou']} vs world 1's {w1['iou']}")
     print(f"data-parallel (b) world 2 over gloo, both ranks on this card, against world 1: consistency step "
@@ -3443,7 +3514,273 @@ def data_parallel_phase(torch, work: str, pth: str, card: str) -> dict:
           f"validation IoU exact; {wall:.1f} s for both ranks (on {card})")
     share_errs = dp_share_kernels(torch)
     print(f"data-parallel phase: {time.perf_counter() - started:.1f} s")
-    return {"counts": [r["counts"] for r in ranks], "share_errs": share_errs}
+    return {"counts": [r["counts"] for r in ranks], "share_errs": share_errs, "world1": w1, "no_group": a}
+
+
+# ---------------------------------------------------------------------------
+# Phase 13f: the space axis (parallel/spatial.py)
+# ---------------------------------------------------------------------------
+SPACE = 2
+SP_GRAD_COS = 0.99989  # the step's own noise floor: the B0 step against itself (scripts/grad_noise_floor.py)
+SP_IOU_ATOL = 5e-4  # the validation's IoU against world 1's (bf16 convolutions of a slab, other algorithms)
+SP_B5_LOSS_RTOL = 1e-3  # the bf16 B5 step's losses against world 1's
+SP_FORWARD_RTOL = 1e-4  # the float32 R101 forward's logits against world 1's, of their largest magnitude
+# The bf16 generation's labels and thresholds against world 1's.  The slabs' bf16 convolutions take other
+# cuDNN algorithms, and each threshold update moves every later selection: 0.376% of the labels and 0.00168 on
+# the thresholds on the H100 (cuDNN deterministic, so the same each run).  What the space axis itself does is
+# held exactly beside it: the float32 forward, each rank's B1/B2 against their plain versions, the threshold
+# updates and the gathered PNGs.
+SP_LABEL_AGREEMENT = 0.995
+SP_THRESHOLD_ATOL = 0.004
+SP_ROWS = TRAIN_H // SPACE
+# (name, B, N_q, N_kv, H, D): a rank's B5 stages in the 512x1024 training step at global batch 2
+SP_ATTN_SHAPES = tuple((f"stage{s + 1}", DP_B, (SP_ROWS // r) * (TRAIN_W // r), (TRAIN_H // 32) * (TRAIN_W // 32), h, 64)
+                       for s, (r, h) in enumerate(((4, 1), (8, 2), (16, 5), (32, 8))))
+
+
+def sp_forward(torch, work: str, pth: str):
+    """The seeded R101's float32 eval forward on phase 3's first image
+    (768x1536), this rank's rows of its full-resolution logits (all of them
+    without a space axis), on the host."""
+    from hiast_tpu_torch.cli.common import build_cfg, standard_parser
+    from hiast_tpu_torch.data.png import decode_png_file
+    from hiast_tpu_torch.models.segmentors import build_segmentor
+    from hiast_tpu_torch.parallel import mesh, spatial
+    from hiast_tpu_torch.selftrain.steps import make_eval_forward
+    from hiast_tpu_torch.utils.checkpoint import load_weights
+
+    cfg = build_cfg(standard_parser("chip_smoke space").parse_args(
+        ["model.type", "SelfTrainingSegmentor", *R101_ARGV, "dataset.num_classes", str(C)]))
+    segmentor = build_segmentor(cfg)
+    load_weights(pth, segmentor.module)
+    if mesh.space_size() > 1:
+        spatial.convert_spatial(segmentor.module)
+    segmentor.module.to("cuda").eval()
+    img = decode_png_file(os.path.join(work, "city", "images", "t_0.png"))[None]
+    with spatial.sharded_rows(mesh.space_group()):
+        logits = make_eval_forward(segmentor, torch.float32)(torch.from_numpy(mesh.local_rows(img)).cuda())
+    return logits.cpu()
+
+
+def sp_label_bands(got_dir: str, want_dir: str, rows: int) -> tuple[float, float]:
+    """The share of the differing labels within 32 rows of the slabs'
+    border (row ``rows``), and the share of the pixels there."""
+    from hiast_tpu_torch.data.png import decode_png_file
+
+    near = differ = 0
+    for name in sorted(os.listdir(want_dir)):
+        d = decode_png_file(os.path.join(got_dir, name)) != decode_png_file(os.path.join(want_dir, name))
+        differ += int(d.sum())
+        near += int(d[rows - 32:rows + 32].sum())
+    return near / max(differ, 1), 64 / (2 * rows)
+
+
+def sp_b5_step(torch, work: str) -> dict:
+    """One bf16 self-training step of phase 5's seeded SegFormer-B5 at a
+    global batch of DP_B 512x1024 crops, this rank on its slab of the rows
+    (the whole of them without a space axis): the global losses and the
+    kernels' launches."""
+    from hiast_tpu_torch.cli.common import build_cfg, standard_parser
+    from hiast_tpu_torch.models.norm import convert_synced
+    from hiast_tpu_torch.models.segmentors import build_segmentor
+    from hiast_tpu_torch.parallel import mesh, spatial
+    from hiast_tpu_torch.selftrain.steps import StepCount, make_self_training_step
+    from hiast_tpu_torch.selftrain.train_state import lr_schedule, make_optimizer
+    from hiast_tpu_torch.utils.checkpoint import load_weights
+
+    cfg = build_cfg(standard_parser("chip_smoke space").parse_args(
+        ["model.type", "SelfTrainingSegmentor", "model.seg_model.type", "SegFormer_B5", "dataset.num_classes", str(C)]))
+    segmentor = build_segmentor(cfg)
+    load_weights(os.path.join(work, "segformer_b5.pth"), segmentor.module)
+    convert_synced(segmentor.module)
+    if mesh.space_size() > 1:
+        spatial.convert_spatial(segmentor.module)
+    segmentor.module.to("cuda")
+    step = make_self_training_step(segmentor, make_optimizer(cfg, segmentor.module), lr_schedule(cfg), torch.bfloat16)
+    rng = np.random.default_rng(23)
+    img = rng.integers(0, 256, size=(DP_B, TRAIN_H, TRAIN_W, 3)).astype(np.uint8)
+    lbl = rng.integers(0, C, size=(DP_B, TRAIN_H, TRAIN_W)).astype(np.uint8)
+    batch = {"t_img": torch.from_numpy(mesh.local_rows(img)).cuda(), "t_plbl": torch.from_numpy(mesh.local_rows(lbl)).cuda()}
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with spatial.sharded_rows(mesh.space_group()):
+        losses = step(batch, StepCount())
+    torch.cuda.synchronize()
+    return {"losses": {k: float(v) for k, v in losses.items()}, "counts": read_counts(),
+            "seconds": time.perf_counter() - t0}
+
+
+def sp_record_ias() -> dict:
+    """Wraps the generator's B1 and B2 so that each call of the generation
+    keeps a copy of its inputs and of the kernel's outputs, on the card,
+    for ``sp_hold_ias``; returns the lists that the calls fill."""
+    from hiast_tpu_torch.pseudo import generator
+
+    calls = {"ias_hist": [], "ias_select": []}
+    hist, select = generator.ias_hist, generator.ias_select
+
+    def recorded_hist(logits, nvalid, num_bins):
+        out = hist(logits, nvalid, num_bins)
+        calls["ias_hist"].append((logits.clone(), nvalid, num_bins, out.clone()))
+        return out
+
+    def recorded_select(logits, thresholds, nvalid, with_maxprob=False):
+        out = select(logits, thresholds, nvalid, with_maxprob)
+        calls["ias_select"].append((logits.clone(), thresholds.clone(), nvalid, tuple(t.clone() for t in out[:3])))
+        return out
+
+    generator.ias_hist, generator.ias_select = recorded_hist, recorded_select
+    return calls
+
+
+def sp_hold_ias(torch, calls: dict) -> dict:
+    """Every B1 and B2 call of this rank's generation (``sp_record_ias``:
+    its slab's logits at its nvalid, the pad samples of the last batch
+    among them) held against its plain version on the same inputs, and each
+    threshold update redone from the plain histograms summed over the
+    world: within 1/num_bins of the thresholds that B2 was given.  Returns
+    each call's errors and, on the host, B2's labels of the valid samples."""
+    from hiast_tpu_torch.config.schema import default_config
+    from hiast_tpu_torch.parallel import mesh
+    from hiast_tpu_torch.pseudo import policies as P
+
+    ias = default_config().pseudo_policy.ias
+    check(0 < len(calls["ias_hist"]) == len(calls["ias_select"]), f"space rank {mesh.rank()}: IAS calls "
+          f"{ {k: len(v) for k, v in calls.items()} }")
+    thr = torch.full((C,), 0.9, device=calls["ias_select"][0][1].device)  # the generator's first state
+    errs, labels = [], []
+    for k, ((x, nvalid, bins, hist), (xs, sel_thr, nvalid_s, got)) in enumerate(zip(calls["ias_hist"],
+                                                                                    calls["ias_select"])):
+        tag = f"space rank {mesh.rank()}, batch {k}, {list(xs.shape)} at nvalid {nvalid_s}"
+        e, want = hold_hist_share(torch, x, nvalid, tag, bins, hist)
+        want_thr = P.ias_update(P.IASState(thr, torch.zeros_like(thr)), mesh.all_reduce_sum([want])[0],
+                                ias.alpha, ias.beta, ias.gamma)
+        thr_diff = float((want_thr - sel_thr).abs().max())
+        check(thr_diff <= 1.0 / bins, f"{tag}: B2's thresholds {thr_diff} off the plain update")
+        e.update(hold_select_share(torch, xs, sel_thr, nvalid_s, tag, got), thr_diff=thr_diff,
+                 shape=list(xs.shape), nvalid=nvalid_s)
+        errs.append(e)
+        labels += list(got[0][:nvalid_s // (xs.shape[2] * xs.shape[3])].cpu().numpy())
+        thr = sel_thr
+    return {"errs": errs, "labels": labels}
+
+
+def sp_worker(argv: list) -> int:
+    """One rank of the space run (``chip_smoke.py --space-rank R STORE WORK
+    PTH``): joins a gloo group through the ``file://`` store on cuda:0
+    beside the other rank as one data index of two space ranks, runs
+    ``dp_consistency_step``, ``dp_generate_and_validate`` with
+    ``runtime.mesh.space 2`` and ``sp_b5_step`` and saves the results."""
+    import torch
+
+    rank, store, work, pth = argv
+    if not torch.cuda.is_available():
+        return 2
+    os.environ.update({"RANK": rank, "WORLD_SIZE": str(SPACE), "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": str(SPACE)})
+    from hiast_tpu_torch.parallel import mesh
+
+    mesh.init("cuda", backend="gloo", init_method=f"file://{store}")
+    mesh.set_space(SPACE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    out = {"step": dp_consistency_step(torch, work), "forward": sp_forward(torch, work, pth)}
+    calls = sp_record_ias()
+    out.update(dp_generate_and_validate(torch, work, pth, "gloo_space_2", val_batch=DP_B,
+                                        opts=("runtime.mesh.space", str(SPACE))))
+    out["ias"] = sp_hold_ias(torch, calls)
+    del calls
+    out["b5"] = sp_b5_step(torch, work)
+    torch.save(out, dp_dir(work, f"space_rank{rank}.pt"))
+    mesh.barrier()
+    mesh.destroy()
+    return 0
+
+
+def space_parallel_phase(torch, work: str, pth: str, card: str, data_parallel: dict, clock_hz: float) -> dict:
+    """Phase 13f (the module docstring): the two space ranks against 13e's
+    world-1 runs and a world-1 B5 step, then B3 and B4 at a rank's shapes.
+    Returns each rank's launches."""
+    started = time.perf_counter()
+    w1, a = data_parallel["world1"], data_parallel["no_group"]
+    b5_w1 = sp_b5_step(torch, work)
+    forward_w1 = sp_forward(torch, work, pth)
+    torch.cuda.empty_cache()
+    store = dp_dir(work, "store_space")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--space-rank", str(r), store, work, pth],
+                              cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(SPACE)]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"space rank {r} exited with {p.returncode}:\n{out[-6000:]}")
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(dp_dir(work, f"space_rank{r}.pt"), weights_only=False) for r in range(SPACE)]
+    for r in ranks:
+        check(torch.equal(r["step"]["sums"], ranks[0]["step"]["sums"]), "the space ranks' weights differ after the step")
+        check(r["step"]["losses"] == ranks[0]["step"]["losses"], "the space ranks report other losses")
+        check(r["b5"]["losses"] == ranks[0]["b5"]["losses"], "the space ranks report other B5 losses")
+    loss_rel, low, skipped = compare_steps(ranks[0]["step"], w1["step"], "space 2 over gloo",
+                                           loss_rtol=DP_LOSS_RTOL, grad_cos=SP_GRAD_COS, norm_rtol=DP_NORM_RTOL)
+    n_gen = -(-N_IMAGES // DP_GEN_B)
+    expected = {"ias_hist": n_gen, "ias_select": n_gen, "sra_attention": 0, "sra_attention_bwd": 0}
+    b5_expected = {"ias_hist": 0, "ias_select": 0, "sra_attention": sum(B5_DEPTHS), "sra_attention_bwd": sum(B5_DEPTHS)}
+    for r, rec in enumerate(ranks):
+        check(rec["counts"] == expected, f"space rank {r}: generation launches {rec['counts']}, expected {expected}")
+        check(rec["b5"]["counts"] == b5_expected, f"space rank {r}: B5 step launches {rec['b5']['counts']}")
+    check(b5_w1["counts"] == b5_expected, f"world-1 B5 step launches {b5_w1['counts']}")
+    print(f"space (a) consistency step (R101, float32, global batch {DP_B}, {TRAIN_H}x{TRAIN_W}, {SP_ROWS} rows a "
+          f"rank) against world 1: losses within {loss_rel:.3g} relative, gradient cosines at least {low:.7f} "
+          f"({skipped} rounding-level tensors left out), the ranks' weights equal")
+    slabs = [np.concatenate(pair, 0) for pair in zip(*(r["ias"]["labels"] for r in ranks))]
+    written = dp_artifacts(ranks[0]["save_dir"])
+    pngs = [v for k, v in sorted(written.items()) if k.endswith(".png")]
+    check(len(slabs) == len(pngs) == N_IMAGES, f"space 2: {len(slabs)} gathered label maps, {len(pngs)} PNGs")
+    for png in pngs:  # the batches' order is the loader's: match each file to its slabs
+        hit = [i for i, g in enumerate(slabs) if np.array_equal(g.astype(np.int64), png.astype(np.int64))]
+        check(len(hit) > 0, "space 2: a written label map is not its ranks' B2 labels stacked")
+        slabs.pop(hit[0])
+    shares = [r["ias"]["errs"] for r in ranks]
+    print(f"space (b) B1 and B2 of each rank's generation against their plain versions on the same slab "
+          f"logits (per rank, per batch): {shares}; each threshold update equal to the plain one from the "
+          f"world's summed plain histograms; every PNG its two ranks' B2 labels stacked")
+    got = torch.cat([r["forward"] for r in ranks], 2)
+    fwd_err = float((got - forward_w1).abs().max()) / float(forward_w1.abs().max())
+    agree = float((got.argmax(1) == forward_w1.argmax(1)).float().mean())
+    check(fwd_err <= SP_FORWARD_RTOL, f"space 2: the float32 R101 forward off by {fwd_err:.3g} of its scale")
+    verdict = artifact_verdict(ranks[0], a, "space 2", "slabs of 384 rows", SP_LABEL_AGREEMENT, SP_THRESHOLD_ATOL)
+    near, band = sp_label_bands(ranks[0]["save_dir"], a["save_dir"], H // SPACE)
+    print(f"space (b) the seeded R101's float32 forward on a {H}x{W} image ({H // SPACE} rows a rank): logits within "
+          f"{fwd_err:.3g} of their scale, argmax equal on {agree:.6f}; the bf16 IAS generation: {verdict}; "
+          f"{near:.3f} of the differing labels within 32 rows of the slabs' border, which holds {band:.3f} of "
+          f"the pixels")
+    iou_diff = max(float(np.abs(r["iou"] - a["iou"]).max()) for r in ranks)
+    check(iou_diff <= SP_IOU_ATOL, f"space 2: IoU {ranks[0]['iou']} vs world 1's {a['iou']}")
+    b5_rel = max(abs(ranks[0]["b5"]["losses"][k] - v) / abs(v) for k, v in b5_w1["losses"].items() if v)
+    check(all(np.isfinite(v) for v in ranks[0]["b5"]["losses"].values()) and b5_rel <= SP_B5_LOSS_RTOL,
+          f"space 2: B5 losses {ranks[0]['b5']['losses']} vs world 1's {b5_w1['losses']}")
+    print(f"space (a-c) data=1, space=2 over gloo, both ranks on this card, against world 1: consistency "
+          f"step {ranks[0]['step']['seconds']:.3f} s at space 2 against "
+          f"{w1['step']['seconds']:.3f} s at world 1 (host clock; halos through the host); IAS generation "
+          f"({N_IMAGES} images at {H}x{W}, {H // SPACE} rows a rank, global batch {DP_GEN_B}): {verdict}, "
+          f"{ranks[0]['gen_s']:.3f} s against {a['gen_s']:.3f} s; validation IoU within {iou_diff:.3g} "
+          f"({ranks[0]['val_s']:.3f} s against {a['val_s']:.3f} s); B5 bf16 step (batch {DP_B}, {TRAIN_H}x{TRAIN_W}) "
+          f"losses within {b5_rel:.3g} relative of world 1, {ranks[0]['b5']['seconds']:.3f} s against "
+          f"{b5_w1['seconds']:.3f} s; launches per rank {[r['counts'] for r in ranks]} in generation, "
+          f"{[r['b5']['counts'] for r in ranks]} in the B5 step; {wall:.1f} s for both ranks (on {card})")
+    label = f"per rank of a space-2 training step ({DP_B}x{SP_ROWS}x{TRAIN_W} queries against {TRAIN_H}x{TRAIN_W}'s K/V"
+    fwd = attention_phase(torch, clock_hz, SP_ATTN_SHAPES, label)
+    bwd = attention_bwd_phase(torch, clock_hz, SP_ATTN_SHAPES, label)
+    print(f"space phase: {time.perf_counter() - started:.1f} s")
+    return {"counts": [{**r["counts"], **{k: r["b5"]["counts"][k] for k in ("sra_attention", "sra_attention_bwd")}}
+                       for r in ranks], "sra_attention": fwd, "sra_attention_bwd": bwd, "ias_shares": shares}
 
 
 def main(argv: list[str]) -> int:
@@ -3454,6 +3791,8 @@ def main(argv: list[str]) -> int:
         return 2
     if argv[:1] == ["--data-parallel-rank"]:
         return dp_worker(argv[1:])
+    if argv[:1] == ["--space-rank"]:
+        return sp_worker(argv[1:])
     profile = "--profile" in argv
     started = time.perf_counter()
     card = card_line()
@@ -3569,6 +3908,7 @@ def main(argv: list[str]) -> int:
           f"training {oxford['s_per_iter']:.4f} s/iter (batch {TRAIN_B}, 768x1024), peak memory "
           f"{oxford['peak_gb']:.3f} GB (on {card})")
     data_parallel = data_parallel_phase(torch, work, pth, card)
+    space = space_parallel_phase(torch, work, pth, card, data_parallel, clock_hz)
 
     rows = []
     sources = {
@@ -3587,19 +3927,28 @@ def main(argv: list[str]) -> int:
         })
         if name in ("ias_hist", "ias_select"):  # the other paths that launch them, and the 9-class times
             c9 = kernels_c9[name]
+            err_key = "hist_max_abs_err" if name == "ias_hist" else "sums_err"
             rows[-1].update(
                 launches_by_path={"round_driver": counts[name], "deeplab_v3plus": v3plus["counts"][name],
                                   "mutual": mutual["counts"][name], "handoff": handoff["counts"][name],
                                   "oxford": oxford["counts"][name],
                                   "data_parallel_rank0": data_parallel["counts"][0][name],
-                                  "data_parallel_rank1": data_parallel["counts"][1][name]},
+                                  "data_parallel_rank1": data_parallel["counts"][1][name],
+                                  "space_rank0": space["counts"][0][name], "space_rank1": space["counts"][1][name]},
                 c9={"shape": [B, OX_C, OX_H, OX_W], "ms": c9["ms"], "plain_ms": c9["plain_ms"],
                     "bound_ms": c9["bound_ms"], "max_abs_err": c9["max_abs_err"]},
                 c7_max_abs_err=kernels_c7[name]["max_abs_err"],
+                space_rank_shares=[[{"shape": e["shape"], "nvalid": e["nvalid"], "max_abs_err": e[err_key],
+                                     "labels_differ": e["labels_differ"]} for e in rank]
+                                   for rank in space["ias_shares"]],
             )
         else:  # the B5 training run's launches; per step under 'blocks' remat; per call of the B5 artifact
             rows[-1]["launches_by_path"] = {"training": counts[name], "remat_blocks_step": remat_counts[name],
-                                            "export_b5_call": export["counts"][name]}
+                                            "export_b5_call": export["counts"][name],
+                                            "space_rank0_b5_step": space["counts"][0][name],
+                                            "space_rank1_b5_step": space["counts"][1][name]}
+            rows[-1]["space_rank_shapes"] = {k: space[name][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                                                        "max_abs_err")}
     print(f"chip_smoke: every phase passed in {time.perf_counter() - started:.1f} s (the build included)")
     print(json.dumps({"kernels": rows}))
     print(f"card: {card}")

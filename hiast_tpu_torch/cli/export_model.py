@@ -28,6 +28,7 @@ from torch import nn
 
 from hiast_tpu_torch.cli.common import build_cfg, resolve_device, standard_parser
 from hiast_tpu_torch.models.segmentors import build_segmentor
+from hiast_tpu_torch.parallel import mesh
 from hiast_tpu_torch.selftrain.steps import normalize_image
 from hiast_tpu_torch.utils.checkpoint import load_weights
 
@@ -83,6 +84,7 @@ def main(argv=None) -> torch.export.ExportedProgram:
     p.add_argument("--width", type=int, default=1536)
     args = p.parse_args(argv)
     cfg = build_cfg(args)
+    mesh.check_mesh(cfg, path="the serving export")
     device = resolve_device(args.device)
     # the trunk runs in bf16 under autocast; the resizes around it in fp32
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -11,7 +11,9 @@ code/generate_pseudo_labels.py; the JAX package's
 ``pseudo_policy.ms_sizes`` / ``is_flip`` fuse scaled and mirrored views.
 Runs on the card by default; ``--device cpu`` runs the plain PyTorch
 versions of the kernels (tests).  Under ``torchrun --nproc_per_node=N``
-each rank takes its share of every batch (``pseudo/generator.py``).
+each rank takes its share of every batch (``pseudo/generator.py``); with
+``runtime.mesh.space S`` (IAS at a single scale) the S ranks of a data
+index take one share, each its slab of the rows.
 """
 from __future__ import annotations
 
@@ -26,8 +28,8 @@ from hiast_tpu_torch.data.native_ops import host_ops_for
 from hiast_tpu_torch.data.pipeline import BatchIterator, prefetched
 from hiast_tpu_torch.models.segmentors import build_segmentor
 from hiast_tpu_torch.ops.resize import bilinear_resize
-from hiast_tpu_torch.parallel import mesh
-from hiast_tpu_torch.registry import PSEUDO_POLICY
+from hiast_tpu_torch.parallel import mesh, spatial
+from hiast_tpu_torch.registry import PSEUDO_POLICY, SEG_MODEL
 from hiast_tpu_torch.selftrain.steps import normalize_image
 from hiast_tpu_torch.utils.checkpoint import load_weights
 
@@ -50,6 +52,9 @@ def make_forward(cfg, segmentor, device: torch.device):
     resized to the native size and divided by the view count, and both
     outputs are ``log(fused + 1e-12)``, 'low' its [::8, ::8] grid (made
     contiguous: the kernels read contiguous NCHW).
+
+    On row slabs (``runtime.mesh.space``) it runs this rank's slab of the
+    images' rows.
     """
     ms_sizes = [tuple(size) for size in (cfg.pseudo_policy.ms_sizes or [])]
     is_flip = bool(cfg.pseudo_policy.is_flip)
@@ -60,6 +65,7 @@ def make_forward(cfg, segmentor, device: torch.device):
 
     @torch.inference_mode()
     def forward(images: np.ndarray) -> dict:
+        images = mesh.local_rows(images)
         x = torch.from_numpy(np.ascontiguousarray(images)).to(device, non_blocking=True)
         img = normalize_image(x)
         h, w = images.shape[1], images.shape[2]
@@ -91,7 +97,12 @@ def main(argv=None):
 
 
 def _generate(cfg, device: torch.device):
-    mesh.check_mesh(cfg)
+    policy = cfg.pseudo_policy
+    stride = SEG_MODEL[cfg.model.seg_model.type].row_stride
+    single_scale = policy.type == "IAS" and not (policy.ms_sizes or policy.is_flip)
+    views = "multi-scale/flip " if policy.ms_sizes or policy.is_flip else ""
+    mesh.use_mesh(cfg, rows=[policy.resize_size[0]] if stride and single_scale else None, stride=stride or 1,
+                  path=f"{views}{policy.type} generation on {cfg.model.seg_model.type}")
     # the trunk runs in bf16 under autocast; everything in fp32 around it
     # (resize, policy math) is meant at full fp32 precision
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -105,6 +116,8 @@ def _generate(cfg, device: torch.device):
         load_weights(cfg.pseudo_policy.resume_from, segmentor.module)
     else:
         warnings.warn("no --pseudo_resume_from given: generating from RANDOM weights")
+    if mesh.space_size() > 1:
+        spatial.convert_spatial(segmentor.module)
     segmentor.module.to(device).eval()
 
     h, w = cfg.pseudo_policy.resize_size
@@ -131,7 +144,8 @@ def _generate(cfg, device: torch.device):
         cfg, make_forward(cfg, segmentor, device), data_iter_factory,
         expected_count=len(dataset), device=device,
     )
-    generator.run()
+    with spatial.sharded_rows(mesh.space_group()):
+        generator.run()
     return generator
 
 

@@ -11,7 +11,8 @@ or the SYNTHIA 16/13-class mIoU when ``dataset.source.type`` is SYNTHIA.
 ``main`` returns the JAX CLI's result dict plus ``seconds``, the host time of
 the batch loop.  Under ``torchrun --nproc_per_node=N`` each rank validates
 its share of every batch and the IoU areas are summed over the ranks
-(``evaluation.py``); rank 0 prints.
+(``evaluation.py``); rank 0 prints.  With ``runtime.mesh.space S`` the S
+ranks of a data index take one share, each its slab of the rows.
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ from hiast_tpu_torch.data.native_ops import host_ops_for
 from hiast_tpu_torch.data.pipeline import BatchIterator, prefetched
 from hiast_tpu_torch.evaluation import Validator
 from hiast_tpu_torch.models.segmentors import build_segmentor
-from hiast_tpu_torch.parallel import mesh
+from hiast_tpu_torch.parallel import mesh, spatial
+from hiast_tpu_torch.registry import SEG_MODEL
 from hiast_tpu_torch.utils.checkpoint import load_weights
 
 
@@ -35,7 +37,10 @@ def main(argv=None):
 
 
 def _validate(cfg, device: torch.device) -> dict:
-    mesh.check_mesh(cfg)
+    stride = SEG_MODEL[cfg.model.seg_model.type].row_stride
+    sizes = [s[0] for s in cfg.validate.resize_sizes] or list(cfg.dataset.val.resize_size or [])[:1]
+    mesh.use_mesh(cfg, rows=sizes if stride else None, stride=stride or 1,
+                  path=f"validation of {cfg.model.seg_model.type}")
     # the trunk runs in bf16 under autocast; the resizes, softmax and fusion
     # around it are meant at full fp32 precision
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -45,13 +50,16 @@ def _validate(cfg, device: torch.device) -> dict:
         raise ValueError("--validate_resume_from (or validate.resume_from) required")
     segmentor = build_segmentor(cfg)
     load_weights(cfg.validate.resume_from, segmentor.module)
+    if mesh.space_size() > 1:
+        spatial.convert_spatial(segmentor.module)
     segmentor.module.to(device).eval()
 
     dataset = build_dataset(cfg, "val", aug_type=[], host=host_ops_for(device.type))
     # a daemon thread decodes the next batches while the card runs this one
     batches = BatchIterator(dataset, cfg.validate.batch_size, shuffle=False, drop_last=False, share=mesh.share())
     validator = Validator(cfg, segmentor, device)
-    result = validator.run(prefetched(iter(batches), depth=2), target=batches.local_size)
+    with spatial.sharded_rows(mesh.space_group()):
+        result = validator.run(prefetched(iter(batches), depth=2), target=batches.local_size)
     result["seconds"] = validator.run_seconds
     iou_str = {c: round(float(v), 4) for c, v in enumerate(result["iou"])}
     if mesh.is_main():

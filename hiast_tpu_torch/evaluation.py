@@ -9,7 +9,10 @@ union.  The host only adds up two [C] vectors per batch.  Under a process
 group (``parallel/mesh.py``) each rank validates its contiguous share of
 every global batch (``BatchIterator``'s ``share``), the IoU areas are
 summed over the ranks, and every rank returns the same IoU; the rank that
-holds a sample writes its colour mask.
+holds a sample writes its colour mask.  On image rows sharded over the
+``space`` axis (``parallel/spatial.py``) each rank of a data index runs its
+slab of the images' and the labels' rows, and the predictions' rows are
+gathered for the first of them to write.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from hiast_tpu_torch.data.pipeline import pad_batch
 from hiast_tpu_torch.data.png import encode_png
 from hiast_tpu_torch.ops.metrics import intersection_and_union, iou_from_areas, synthia_mious
 from hiast_tpu_torch.ops.resize import bilinear_resize
-from hiast_tpu_torch.parallel import mesh
+from hiast_tpu_torch.parallel import mesh, spatial
 from hiast_tpu_torch.selftrain.steps import normalize_image
 
 # Class palettes for colorized prediction export (reference validator.py:57-70)
@@ -58,7 +61,7 @@ def make_val_step(segmentor, resize_size, num_classes: int, dtype: torch.dtype =
 
     @torch.inference_mode()
     def step(img_uint8: torch.Tensor, lbl: torch.Tensor):
-        img = bilinear_resize(normalize_image(img_uint8), rh, rw)
+        img = bilinear_resize(normalize_image(img_uint8), rh // spatial.slabs(), rw)  # this slab's rows
         logits = bilinear_resize(segmentor.raw_apply(img, dtype)["logits"].float(), lbl.shape[1], lbl.shape[2])
         return intersection_and_union(logits.argmax(1), lbl, num_classes)
 
@@ -88,7 +91,7 @@ def make_ms_flip_step(
         h, w = img.shape[2], img.shape[3]
         fused = None
         for rh, rw in resize_sizes:
-            scaled = bilinear_resize(img, rh, rw)
+            scaled = bilinear_resize(img, rh // spatial.slabs(), rw)  # this slab's rows
             probs = forward_probs(scaled)
             if is_flip:
                 probs = probs + forward_probs(scaled.flip(3)).flip(3)
@@ -115,12 +118,14 @@ def run_validation(step_fn: Callable, data_iter: Iterable, device: torch.device,
         if target is None:
             target = batch["images"].shape[0]
         batch = pad_batch(batch, target)
-        img = torch.from_numpy(batch["images"]).to(device, non_blocking=True)
-        lbl = torch.from_numpy(batch["labels"].astype(np.int64)).to(device, non_blocking=True)
+        img = torch.from_numpy(np.ascontiguousarray(mesh.local_rows(batch["images"]))).to(device, non_blocking=True)
+        lbl = torch.from_numpy(mesh.local_rows(batch["labels"]).astype(np.int64)).to(device, non_blocking=True)
         *pred, inter, union = step_fn(img, lbl)  # a ms/flip step also returns pred
         if with_pred:
             n = batch["n_valid"]
-            preds.append((pred[0][:n].cpu().numpy(), batch["image_paths"][:n]))
+            pred = spatial.gather_rows(pred[0], dim=1)
+            if mesh.space_index() == 0:
+                preds.append((pred[:n].cpu().numpy(), batch["image_paths"][:n]))
         inter_sum = inter if inter_sum is None else inter_sum + inter
         union_sum = union if union_sum is None else union_sum + union
     mesh.all_reduce_sum([inter_sum, union_sum])

@@ -13,9 +13,11 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from hiast_tpu_torch.models.resnet import ResNetOS8
+from hiast_tpu_torch.parallel import spatial
 from hiast_tpu_torch.registry import SEG_MODEL
 
 
@@ -36,8 +38,31 @@ class ASPPV2(nn.Module):
         return out
 
 
+class SpatialASPPV2(ASPPV2):
+    """``ASPPV2`` on a row slab (``parallel/spatial.py:convert_spatial``):
+    its input's halo is exchanged once, at the deepest dilation (24 rows),
+    and each branch reads its own depth of it."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if spatial.rows_group() is None:
+            return super().forward(x)
+        deepest = max(conv.dilation[0] for conv in self.conv2d_list)
+        rows = spatial.halo_rows(x, deepest, deepest)
+        h, out = x.shape[2], None
+        for conv in self.conv2d_list:
+            d = conv.dilation[0]
+            y = F.conv2d(rows[:, :, deepest - d:deepest + h + d], conv.weight, conv.bias, 1, (0, conv.padding[1]),
+                         conv.dilation)
+            out = y if out is None else out + y
+        return out
+
+
 @SEG_MODEL.register("DeepLab_V2")
 class DeepLabV2(nn.Module):
+    # the rows each slab of the ``space`` axis is a multiple of: the output
+    # stride, which also starts every slab on the strong view's equalize grid of 4
+    row_stride = 8
+
     def __init__(
         self, num_classes: int = 19, output_dim: int = 256,
         backbone_layers: Sequence[int] = (3, 4, 23, 3),

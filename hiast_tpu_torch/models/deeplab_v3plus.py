@@ -83,6 +83,8 @@ class ASPPV3(nn.Module):
 
 @SEG_MODEL.register("DeepLab_V3Plus")
 class DeepLabV3Plus(nn.Module):
+    row_stride = None  # runs no slabs of the ``space`` axis yet (the pooled branch, ROADMAP A20)
+
     def __init__(
         self, num_classes: int = 19, output_dim: int = 256,
         backbone_layers: Sequence[int] = (3, 4, 23, 3), low_level_dim: int = 48,

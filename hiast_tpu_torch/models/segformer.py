@@ -24,6 +24,12 @@ batch statistics and updates its running ones, as the JAX model does with
 in the backward when the encoder trains under autograd (``models/remat.py``;
 ``save_dots`` keeps the Linear outputs), so a B5 training step launches the
 attention kernel twice per block.  Parameter names do not change.
+
+On image rows sharded over the ``space`` axis (``parallel/spatial.py``:
+``convert_spatial`` and ``sharded_rows``) each rank's tokens are its slab's;
+the convolutions read their halos, the head's resizes their source rows,
+and each ``EfficientAttention`` gathers the spatially reduced K/V of every
+slab, so the SRA kernel runs this rank's queries against the whole K/V.
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ from torch import nn
 from hiast_tpu_torch.models.remat import checkpointed
 from hiast_tpu_torch.ops.cuda.attention import sra_attention_kv
 from hiast_tpu_torch.ops.resize import bilinear_resize
+from hiast_tpu_torch.parallel import spatial
 from hiast_tpu_torch.registry import SEG_MODEL
 
 LN_EPS = 1e-6
@@ -98,6 +105,10 @@ class EfficientAttention(nn.Module):
         kv_in = x
         if self.sr_ratio > 1:
             kv_in = self.norm(_tokens(self.sr(_grid(x, h, w))))
+        # on row slabs (parallel/spatial.py) the queries stay this rank's and
+        # K/V come from every slab; the gather's backward sums the partial
+        # d(kv) of each rank's queries
+        kv_in = spatial.gather_rows(kv_in, dim=1)
         # the kernel reads the k and v halves of kv in place
         return self.proj(sra_attention_kv(q, self.kv(kv_in)).reshape(b, n, c))
 
@@ -235,6 +246,8 @@ class SegFormer(nn.Module):
     """Full model with the seg_model interface ({'logits', 'backbone'});
     logits at stride 4."""
 
+    row_stride = 32  # the rows each slab of the ``space`` axis is a multiple of: the deepest stage's stride
+
     def __init__(self, num_classes: int = 19, variant: str = "B5", remat_blocks: bool = False,
                  save_dots: bool = False):
         super().__init__()
@@ -278,6 +291,7 @@ def _make_variant_factory(variant: str):
         seg_model interface and ignored, as in the JAX factory."""
         return SegFormer(num_classes=num_classes, variant=variant, remat_blocks=remat_blocks, save_dots=save_dots)
 
+    factory.row_stride = SegFormer.row_stride
     return factory
 
 

@@ -34,6 +34,12 @@ pixel and a lerp (JAX's hat-function weights over all 33 knots give the
 same sum and would take a [B, H, W, 3, 33] tensor).  None of this is a
 Pallas kernel in the JAX package; it runs as PyTorch operations (cuDNN for
 the convolutions).
+
+On image rows sharded over the ``space`` axis (``parallel/spatial.py``) the
+view is made on each rank's slab: the blur takes a 20-row halo, the
+per-image means sum each slab's float32 sum and count over the space group
+before the divide, and the equalize histograms add the slabs' counts of
+the global [::4, ::4] grid (every slab starts on a multiple of 4 rows).
 """
 from __future__ import annotations
 
@@ -42,6 +48,8 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+
+from hiast_tpu_torch.parallel import spatial
 
 N_POOL = 8  # CCA's transform pool
 MAX_BLUR = 41  # albumentations' blur_limit upper bound
@@ -110,8 +118,12 @@ def _gray(x: torch.Tensor) -> torch.Tensor:
 
 def _pixel_mean(g: torch.Tensor) -> torch.Tensor:
     """[B, H, W] -> [B, 1, 1, 1] mean accumulated in float32 (a bf16 sum over
-    ~0.5M pixels would lose every addend below its ulp)."""
-    return g.mean(dim=(1, 2), dtype=torch.float32)[:, None, None, None]
+    ~0.5M pixels would lose every addend below its ulp); over every slab of
+    the rows."""
+    if spatial.rows_group() is None:
+        return g.mean(dim=(1, 2), dtype=torch.float32)[:, None, None, None]
+    total = spatial.sum_over_rows(g.sum(dim=(1, 2), dtype=torch.float32))
+    return (total / (g.shape[1] * g.shape[2] * spatial.slabs()))[:, None, None, None]
 
 
 def _per_sample(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -157,7 +169,10 @@ def gaussian_blur(x: torch.Tensor, ksize: torch.Tensor) -> torch.Tensor:
     half = (MAX_BLUR - 1) // 2
     taps = blur_taps(ksize).to(x.dtype).repeat_interleave(3, dim=0)  # [B*3, 41]
     y = x.permute(0, 3, 1, 2).reshape(1, b * 3, h, w)
-    y = F.conv2d(y, taps.view(b * 3, 1, MAX_BLUR, 1), padding=(half, 0), groups=b * 3)
+    if spatial.rows_group() is None:
+        y = F.conv2d(y, taps.view(b * 3, 1, MAX_BLUR, 1), padding=(half, 0), groups=b * 3)
+    else:  # the taps reach ``half`` rows into the neighbours' slabs
+        y = F.conv2d(spatial.halo_rows(y, half, half), taps.view(b * 3, 1, MAX_BLUR, 1), groups=b * 3)
     y = F.conv2d(y, taps.view(b * 3, 1, 1, MAX_BLUR), padding=(0, half), groups=b * 3)
     return y.view(b, 3, h, w).permute(0, 2, 3, 1)
 
@@ -173,7 +188,7 @@ def equalize(x: torch.Tensor) -> torch.Tensor:
     plane = torch.arange(b * 3, device=x.device).view(b, 1, 1, 3)
     flat = (plane * 256 + qs).reshape(-1)
     hist = torch.zeros(b * 3 * 256, dtype=torch.float32, device=x.device)
-    hist = hist.index_add_(0, flat, torch.ones_like(flat, dtype=torch.float32)).view(b, 3, 256)
+    hist = spatial.sum_over_rows(hist.index_add_(0, flat, torch.ones_like(flat, dtype=torch.float32))).view(b, 3, 256)
     cdf = hist.cumsum(-1)
     first = (hist > 0).to(torch.int32).argmax(-1, keepdim=True)
     cdf_min = cdf.gather(-1, first)

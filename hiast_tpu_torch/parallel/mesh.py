@@ -1,16 +1,23 @@
-"""The ``data`` axis of the JAX package's mesh as a ``torch.distributed``
-process group.
+"""The ``data`` and ``space`` axes of the JAX package's mesh as
+``torch.distributed`` process groups.
 
 The counterpart of ``hiast_tpu/parallel/mesh.py``.  There one program
-shards each global batch over the ``data`` axis of a device mesh, and XLA
-emits the gradient all-reduce, the synced BatchNorm moments and the global
-IAS histogram and IoU sums.  Here one process runs on each GPU, launched by
-``torchrun``, and the ``data`` axis is the default process group: each rank
-takes its contiguous share of every global batch (``local_share``), and the
-port issues those collectives itself (``models/norm.py``, the loss
+shards each global batch over the ``data`` axis of a device mesh, and its
+image rows over the ``space`` axis, and XLA emits the gradient all-reduce,
+the synced BatchNorm moments, the global IAS histogram and IoU sums and the
+convolutions' halo exchanges.  Here one process runs on each GPU, launched
+by ``torchrun``, and the ranks form a ``data x space`` grid: rank
+``d * space + s`` holds data index d and space index s, as JAX's
+``devs.reshape(data, space, model)`` places its devices.  The ranks of one
+data index load the same samples (``share``, ``local_share`` and
+``stream_seed`` key on the data index) and each keeps its slab of their
+rows (``local_rows``).  The port issues the collectives itself: over the
+whole group the sums of a global batch (``models/norm.py``, the loss
 denominators of ``ops/losses.py``, ``selftrain/steps.py``,
-``pseudo/generator.py``, ``evaluation.py``).  The ``space`` and ``model``
-axes have no counterpart yet (ROADMAP A17); ``check_mesh`` refuses them.
+``pseudo/generator.py``, ``evaluation.py``), within ``space_group()`` the
+halos, gathers and per-image sums of ``parallel/spatial.py``.  The ``model``
+axis has no counterpart yet (ROADMAP A17); ``check_mesh`` refuses it, and
+refuses ``space`` on the paths that run no slabs yet (ROADMAP A20).
 
 Without ``WORLD_SIZE`` in the environment nothing is initialised, every
 helper answers for one process and every collective is skipped: the path
@@ -25,6 +32,8 @@ import torch
 import torch.distributed as dist
 
 STREAM_SEED_STRIDE = 7919  # the JAX trainer's per-process stream offset
+
+_space = {"size": 1, "group": None}  # the space axis of this process's grid (set_space)
 
 
 def launched() -> bool:
@@ -79,8 +88,47 @@ def session(device: str = "cuda"):
 
 
 def destroy() -> None:
+    _space.update(size=1, group=None)
     if initialized():
         dist.destroy_process_group()
+
+
+def set_space(space: int) -> None:
+    """Arrange the group as ``world / space`` data indices of ``space``
+    ranks each and build each data index's space group, once (every rank
+    builds every group, in one order).  ``check_mesh`` has held the sizes."""
+    if space == _space["size"] or not initialized():
+        return
+    if space == 1:
+        _space.update(size=1, group=None)
+        return
+    group = None
+    for d in range(world_size() // space):
+        g = dist.new_group(list(range(d * space, (d + 1) * space)))
+        if rank() // space == d:
+            group = g
+    _space.update(size=space, group=group)
+
+
+def space_size() -> int:
+    return _space["size"]
+
+
+def space_index() -> int:
+    return rank() % space_size()
+
+
+def space_group():
+    """The process group of this rank's data index (None without a space axis)."""
+    return _space["group"]
+
+
+def data_size() -> int:
+    return world_size() // space_size()
+
+
+def data_index() -> int:
+    return rank() // space_size()
 
 
 def world_size() -> int:
@@ -136,22 +184,39 @@ def any_rank(flag: bool, device: torch.device) -> bool:
 
 
 def share() -> tuple[int, int] | None:
-    """(rank, world size) for ``BatchIterator``'s ``share``; None without a
-    process group."""
-    return (rank(), world_size()) if initialized() else None
+    """(data index, data size) for ``BatchIterator``'s ``share``; None
+    without a process group."""
+    return (data_index(), data_size()) if initialized() else None
 
 
 def local_share(global_n: int) -> slice:
-    """This rank's contiguous share ``[r n / N, (r + 1) n / N)`` of ``global_n``
-    rows, the rows JAX's ``shard_batch`` puts on device r of the data axis."""
-    n, r = world_size(), rank()
-    return slice(r * global_n // n, (r + 1) * global_n // n)
+    """This data index's contiguous share ``[d n / N, (d + 1) n / N)`` of
+    ``global_n`` samples, the samples JAX's ``shard_batch`` puts on index d
+    of the data axis."""
+    n, d = data_size(), data_index()
+    return slice(d * global_n // n, (d + 1) * global_n // n)
+
+
+def local_rows(x, dim: int = 1):
+    """This space index's contiguous slab of the ``dim`` axis of ``x`` (a
+    numpy array or a tensor; image rows are axis 1 of NHWC and [B, H, W]),
+    the rows JAX's ``shard_batch`` puts on index s of the space axis."""
+    n = space_size()
+    if n == 1:
+        return x
+    if x.shape[dim] % n:
+        raise ValueError(f"{x.shape[dim]} image rows do not split over runtime.mesh.space={n}")
+    h = x.shape[dim] // n
+    index = [slice(None)] * x.ndim
+    index[dim] = slice(space_index() * h, (space_index() + 1) * h)
+    return x[tuple(index)]
 
 
 def stream_seed(base: int, offset: int) -> int:
-    """Each rank's own sample stream (JAX ``_stream_seed``,
-    ``hiast_tpu/selftrain/trainers.py:197-199``)."""
-    return base + offset + STREAM_SEED_STRIDE * rank()
+    """Each data index's own sample stream (JAX ``_stream_seed``,
+    ``hiast_tpu/selftrain/trainers.py:197-199``): the ranks of one data
+    index draw the same samples, crops and donors."""
+    return base + offset + STREAM_SEED_STRIDE * data_index()
 
 
 def broadcast_object(obj):
@@ -181,23 +246,53 @@ def broadcast_module(module: torch.nn.Module) -> None:
             dist.broadcast(t.data, src=0)
 
 
-def check_mesh(cfg, batch: int | None = None, world: int | None = None) -> None:
-    """Refuse a ``runtime.mesh`` this process group cannot run: a ``space``
-    or ``model`` axis above 1 (ROADMAP A17), a ``data`` axis other than -1
-    or the world size, and a global ``batch`` (training) that the world size
-    does not divide.  The JAX ``make_mesh`` caps the data axis to a divisor
-    of the batch; here the launcher fixed the world size, so this names the
-    world sizes that would fit.  ``world`` defaults to the group's size."""
+def check_mesh(cfg, batch: int | None = None, world: int | None = None, rows=None, stride: int = 1,
+               path: str = "this path") -> None:
+    """Refuse a ``runtime.mesh`` this process group cannot run.
+
+    - ``model`` above 1 (ROADMAP A17);
+    - ``space`` above 1 on a path that shards no rows (``rows`` None; ROADMAP
+      A20, naming ``path``), or not dividing the world size;
+    - a ``data`` axis other than -1 or ``world / space``;
+    - a global ``batch`` (training) that the data axis does not divide: the
+      JAX ``make_mesh`` caps its data axis to a divisor of the batch, but
+      here the launcher fixed the world size, so this names the sizes that
+      would fit;
+    - each of ``rows`` (the image rows of every tensor the path shards) that
+      does not split into ``space`` slabs of a multiple of ``stride`` rows,
+      the model's row stride (its strided layers read whole windows of a
+      slab, and the strong view's equalize grid starts each slab on a
+      multiple of 4).
+
+    ``world`` defaults to the group's size."""
     mesh, n = cfg.runtime.mesh, world or world_size()
-    for axis in ("space", "model"):
-        if getattr(mesh, axis) > 1:
+    if mesh.model > 1:
+        raise ValueError(f"runtime.mesh.model={mesh.model}: the port runs the data and space axes only; "
+                         "the model axis is ROADMAP item A17")
+    space = mesh.space
+    if space > 1 and rows is None:
+        raise ValueError(f"runtime.mesh.space={space}: {path} does not run with image rows sharded yet "
+                         "(ROADMAP item A20)")
+    if space < 1 or n % space:
+        raise ValueError(f"runtime.mesh.space={space} does not divide the process group's {n} ranks")
+    data = n // space
+    if mesh.data not in (-1, data):
+        raise ValueError(f"runtime.mesh.data={mesh.data} but the process group has {n} ranks at "
+                         f"runtime.mesh.space={space}; set it to -1 or to {data}")
+    if batch is not None and batch % data:
+        fit = [k * space for k in range(1, batch + 1) if batch % k == 0]
+        raise ValueError(f"the global batch of {batch} does not split over {data} data indices "
+                         f"({n} ranks at runtime.mesh.space={space}); world sizes that fit it: {fit}")
+    for r in rows or ():
+        if space > 1 and r % (space * stride):
             raise ValueError(
-                f"runtime.mesh.{axis}={getattr(mesh, axis)}: the port runs the data axis only; "
-                "the space and model axes are ROADMAP item A17"
-            )
-    if mesh.data not in (-1, n):
-        raise ValueError(f"runtime.mesh.data={mesh.data} but the process group has {n} ranks; "
-                         "set it to -1 or to the world size")
-    if batch is not None and batch % n:
-        raise ValueError(f"the global batch of {batch} does not split over {n} ranks; "
-                         f"world sizes that fit it: {[k for k in range(1, batch + 1) if batch % k == 0]}")
+                f"{r} image rows do not split over runtime.mesh.space={space} into slabs of a multiple of "
+                f"{stride} rows (the model's row stride); rows that fit are multiples of {space * stride}, "
+                f"e.g. {r // (space * stride) * space * stride or space * stride} or "
+                f"{(r // (space * stride) + 1) * space * stride}")
+
+
+def use_mesh(cfg, batch: int | None = None, rows=None, stride: int = 1, path: str = "this path") -> None:
+    """``check_mesh``, then the grid of ``runtime.mesh.space`` (``set_space``)."""
+    check_mesh(cfg, batch, rows=rows, stride=stride, path=path)
+    set_space(cfg.runtime.mesh.space)

@@ -37,6 +37,13 @@ rank, as JAX's replicated state is; the confidence sums travel as float64
 world size 1.  Each rank writes the PNGs of its samples; rank 0 decides
 whether the output dir is done or must be prepared, gathers every rank's
 per-sample counts in the global order and writes the statistics files.
+
+On image rows sharded over the ``space`` axis (IAS only;
+``parallel/spatial.py``) each rank of a data index runs the kernels on its
+slab of the same samples, with a valid-pixel count of its rows: the
+histogram and the confidence sums go over the whole group as above, the
+per-sample class counts over the space group, and the label rows are
+gathered so that the data index's first space rank writes them.
 """
 from __future__ import annotations
 
@@ -52,7 +59,7 @@ import torch
 from hiast_tpu_torch.data.pipeline import pad_batch
 from hiast_tpu_torch.data.png import write_png
 from hiast_tpu_torch.ops.cuda.select_kernel import ias_hist, ias_select
-from hiast_tpu_torch.parallel import mesh
+from hiast_tpu_torch.parallel import mesh, spatial
 from hiast_tpu_torch.pseudo import policies as P
 from hiast_tpu_torch.registry import PSEUDO_POLICY
 
@@ -115,7 +122,7 @@ class BasePseudoGenerator:
         its true length, so ``_record_batch``'s zip drops them from every
         written artifact."""
         size = self.cfg.pseudo_policy.batch_size
-        target = -(-size // mesh.world_size()) if size else batch["images"].shape[0]
+        target = -(-size // mesh.data_size()) if size else batch["images"].shape[0]
         padded = pad_batch(batch, target)
         return padded["images"], int(padded["n_valid"]), batch["image_paths"]
 
@@ -346,6 +353,8 @@ class IASGenerator(BasePseudoGenerator):
         new_cmp = P.update_class_mean_probs(
             state.class_mean_probs, sums, totals, self.cfg.preprocessor.copy_paste.gamma,
         )
+        # on row slabs: every slab's labels and counts of each sample
+        plbl, counts = spatial.gather_rows(plbl, dim=1), spatial.sum_over_rows(counts)
         return plbl, counts, P.IASState(new_thr, new_cmp)
 
     def generate(self):
@@ -359,7 +368,7 @@ class IASGenerator(BasePseudoGenerator):
             images, n_valid, paths = self._pad(batch)
             full, stats_logits = self._forward(images)
             plbl, counts, state = self._ias_step(full, stats_logits, state, n_valid)
-            return plbl, counts, paths
+            return plbl, counts, paths if mesh.space_index() == 0 else []
 
         self._run_select_loop(step)
         self.class_threshold = state.thresholds.cpu().numpy()

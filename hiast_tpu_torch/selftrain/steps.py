@@ -29,8 +29,12 @@ BatchNorm its statistics (``models/norm.py``), and after the backward one
 all-reduce sums the trainable gradients and the losses over the ranks, so
 the optimizer, the guard and the reported losses see the global values and
 every rank steps, or skips, alike.  The strong view's draws are made for
-the global batch from the same-seeded generator, and each rank takes its
-rows.  At world size 1 every sum is the identity.
+the global batch from the same-seeded generator, and each data index takes
+its samples.  On image rows sharded over the ``space`` axis
+(``parallel/spatial.py``) a batch holds this rank's slab of its samples'
+rows, and the same sums complete the step: each rank's gradient is its
+rows' share, the halos' backward included.  At world size 1 every sum is
+the identity.
 """
 from __future__ import annotations
 
@@ -94,7 +98,9 @@ def _forward_for_loss(segmentor, img: torch.Tensor, dtype: torch.dtype) -> dict:
 
 def _labels_for_loss(segmentor, lbl: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     """Labels [B, H, W] on the loss grid: nearest-downsampled to the logits'
-    grid under 'os8' (torch's 'nearest' convention, as the JAX resize)."""
+    grid under 'os8' (torch's 'nearest' convention, as the JAX resize).  On
+    a row slab the ratio is the trunk's stride and each slab starts on a
+    multiple of it, so the slab's own rows are the ones it reads."""
     if _loss_grid(segmentor) == "full" or tuple(lbl.shape[-2:]) == tuple(logits.shape[-2:]):
         return lbl
     h, w = lbl.shape[-2:]
@@ -133,8 +139,8 @@ def _sum_over_ranks(losses: dict, params: list[torch.Tensor]) -> dict:
 
 
 def _strong_draws(local_b: int, kind: str, generator: torch.Generator):
-    """This rank's rows of the colour-aug draws of the global batch."""
-    global_b = local_b * mesh.world_size()
+    """This data index's samples of the colour-aug draws of the global batch."""
+    global_b = local_b * mesh.data_size()
     return draw_color_aug(global_b, kind, generator).rows(mesh.local_share(global_b))
 
 

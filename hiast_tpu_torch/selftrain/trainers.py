@@ -11,13 +11,17 @@ strong view on the card, hard-aware copy-paste, the directional-consistency
 loss); ``MutualLearningTrainer`` trains two students that teach each other.
 
 One process a GPU under ``torchrun`` (``parallel/mesh.py``): the build
-checks ``runtime.mesh`` against the world size (``check_mesh``), each rank
-draws a local batch of ``batch_size / N`` from its own stream
+checks ``runtime.mesh`` against the world size (``check_mesh``), each data
+index draws a local batch of ``batch_size / data`` from its own stream
 (``stream_seed``), BatchNorm becomes the synced one above one rank
 (``models/norm.py``), and rank 0's weights and buffers (the EMA teacher,
 the peer and the discriminator included) go to every rank once, after any
-resume.  The steps sum gradients and losses over the ranks
-(``selftrain/steps.py``); validation runs on each rank's share.  Rank 0
+resume.  With ``runtime.mesh.space`` above 1 (the self-training and
+consistency trainers on DeepLab-v2 and SegFormer; the others refuse it,
+ROADMAP A20) each rank uploads its slab of every batch's rows and the
+model runs on slabs (``parallel/spatial.py``).  The steps sum gradients
+and losses over the ranks (``selftrain/steps.py``); validation runs on
+each rank's share.  Rank 0
 alone writes the config, the log file, the tensorboard events and the
 checkpoints, and the others wait for its saves.  Without a process group
 this is one process on one device.
@@ -45,8 +49,8 @@ from hiast_tpu_torch.data.pipeline import BatchIterator, infinite_batches, prefe
 from hiast_tpu_torch.evaluation import make_val_step, run_validation
 from hiast_tpu_torch.models.norm import convert_synced
 from hiast_tpu_torch.models.segmentors import build_segmentor
-from hiast_tpu_torch.parallel import mesh
-from hiast_tpu_torch.registry import PREPROCESSOR, TRAINER
+from hiast_tpu_torch.parallel import mesh, spatial
+from hiast_tpu_torch.registry import PREPROCESSOR, SEG_MODEL, TRAINER
 from hiast_tpu_torch.selftrain import steps as S
 from hiast_tpu_torch.selftrain.train_state import (
     lr_schedule,
@@ -74,6 +78,7 @@ class BaseTrainer:
 
     needs_source = False
     needs_target = False
+    shards_rows = False  # runs with image rows over runtime.mesh.space
 
     def __init__(self, cfg, device: torch.device | str = "cuda"):
         self.cfg = cfg
@@ -98,8 +103,13 @@ class BaseTrainer:
     # -- assembly ------------------------------------------------------------
     def initialize(self):
         cfg = self.cfg
-        mesh.check_mesh(cfg, cfg.train.batch_size)
-        self.local_batch = cfg.train.batch_size // mesh.world_size()
+        stride = SEG_MODEL[cfg.model.seg_model.type].row_stride if self.shards_rows else None
+        rows = None
+        if stride:  # the crops, and the validation's input
+            rows = [cfg.dataset.crop_size[0]] + (list(cfg.dataset.val.resize_size or [])[:1] if cfg.dataset.val.type else [])
+        mesh.use_mesh(cfg, cfg.train.batch_size, rows=rows, stride=stride or 1,
+                      path=f"{type(self).__name__} on {cfg.model.seg_model.type}")
+        self.local_batch = cfg.train.batch_size // mesh.data_size()
         np.random.seed(cfg.train.random_seed)
         torch.manual_seed(cfg.train.random_seed)
         os.makedirs(cfg.work_dir, exist_ok=True)
@@ -139,6 +149,8 @@ class BaseTrainer:
             load_weights(resume, module)
             self.logger.info(f"resumed weights from {resume}")
         convert_synced(module)
+        if mesh.space_size() > 1:
+            spatial.convert_spatial(module)
         module.to(self.device)
         self.optimizer = make_optimizer(cfg, module)
         self.count = S.StepCount()
@@ -208,6 +220,8 @@ class BaseTrainer:
     def _upload(self, batch: dict) -> dict:
         out = {}
         for key, arr in batch.items():
+            if arr.ndim >= 3:  # images, labels and masks: this rank's slab of their rows
+                arr = mesh.local_rows(arr)
             t = torch.from_numpy(np.ascontiguousarray(arr))
             if self.device.type == "cuda":
                 t = t.pin_memory().to(self.device, non_blocking=True)
@@ -234,6 +248,10 @@ class BaseTrainer:
             signal.signal(signal.SIGTERM, self._prev_sigterm)
 
     def run(self):
+        with spatial.sharded_rows(mesh.space_group()):
+            self._run()
+
+    def _run(self):
         cfg = self.cfg
         self.logger.info("=" * 100)
         self.logger.info(f"config:\n{json.dumps(cfg.to_dict(), indent=1)}")
@@ -395,6 +413,7 @@ class SelfTrainingTrainer(BaseTrainer):
     """Target-only training on pseudo-labels (reference self_training_trainer.py)."""
 
     needs_target = True
+    shards_rows = True
 
     def assert_cfg(self):
         if not self.cfg.dataset.target.pseudo_dir:
@@ -545,6 +564,8 @@ class MutualLearningTrainer(SelfTrainingTrainer):
     restores both.  Every validation validates the peer too
     (``peer_model``).  Like the JAX trainer it writes no teacher
     checkpoint, so the round driver runs it for one round."""
+
+    shards_rows = False
 
     def assert_cfg(self):
         super().assert_cfg()

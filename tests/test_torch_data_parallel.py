@@ -408,7 +408,7 @@ def test_train_cli_writes_on_rank_0_only(world2):
 
 
 @pytest.mark.parametrize("key,value,world,batch,message", [
-    ("space", 2, 2, None, "ROADMAP item A17"),
+    ("space", 2, 2, None, "ROADMAP item A20"),  # a path that shards no rows (tests/test_torch_space_parallel.py)
     ("model", 2, 2, None, "ROADMAP item A17"),
     ("data", 3, 2, None, "runtime.mesh.data=3 but the process group has 2 ranks"),
     ("data", -1, 4, 6, r"world sizes that fit it: \[1, 2, 3, 6\]"),
